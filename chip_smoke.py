@@ -7,8 +7,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
 2. build: compiles csrc/spd_chol.cu with nvcc (the batched-Cholesky kernel);
-3. kernel: the CUDA kernel against its plain PyTorch version and a float64
-   solve, at the shapes the main path gives it; times both with CUDA events;
+3. kernel: prints ptxas' registers and spills per kernel instantiation;
+   holds the CUDA kernel against its plain PyTorch version and a float64
+   solve at the edges of its register layout (n) and of its blocks (F), with
+   and without lam; checks that one indefinite system poisons only its own
+   x;
 4. main path: the bench's throughput configuration (lockstep flat LM,
    pointer-doubling FK, no part passes, hierarchical ik 8/6) on the
    first-party model: a 10,000-frame recording made on the card, the fit on
@@ -16,7 +19,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    the kernel's launch count must rise in both; residuals and the offset
    error against the ground truth must stay under stated bounds;
 5. reference: a small fit + ik on the card against the same run on the CPU
-   in float64 (the path the CPU tests hold against the JAX package).
+   in float64 (the path the CPU tests hold against the JAX package);
+6. kernel times: in turns, the kernel, the plain version and one library
+   call (torch.linalg.solve) at the main path's shapes, as time per call on
+   the stream (CUDA events) and as device time (torch.profiler), each
+   beside its bound.
 
 The second-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -25,6 +32,7 @@ The second-to-last line is {"kernels": [...]} and the last line
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -47,6 +55,10 @@ THROUGHPUT = {
     "ik_return_full": False,
 }
 N_FIT, CLIP, N_IK = 250, 250, 10_000
+# The same run's residuals and offset error with the first version of the
+# kernel (one block per system) on an H100: a kernel that changes only the
+# float32 rounding keeps each within 2%.
+FIRST_KERNEL_MM = {"fit residual": 2.1502, "ik residual": 1.4900, "offset error": 2.3203}
 # Bounds on clean (noise-free) firstparty data, in meters. The same run on
 # the CPU with a 1,000-frame ik gives a fit residual of 2.17 mm, an ik
 # residual of 1.54 mm and an offset error of 2.32 mm; the bounds leave a
@@ -70,67 +82,153 @@ def _resid(markers, kp, n) -> float:
     return float(np.linalg.norm(d, axis=-1).mean())
 
 
-def _systems(F, n, gen, device):
-    J = torch.randn(F, 3 * n, n, generator=gen).to(device)
-    A = (J.mT @ J + 1e-4 * torch.eye(n, device=device)).contiguous()
-    g = torch.randn(F, n, generator=gen).to(device)
-    lam = torch.rand(F, generator=gen).to(device)
-    return A, g, lam
+# The kernel phase: correctness at the register-layout edges of the kernel
+# (a row block is 32 rows; 6, 37 and 73 are the models' sizes; the kernel's
+# own max_n is added) and at batch sizes that are not a multiple of its four
+# systems per block; times at the main path's shapes (PERF.md: n=37 at
+# F=10,000 / 1,250 ik passes, 250 fit passes, 40 root batch, 1 flat LM) and
+# at the rodent's n=73.
+EDGE_N = (1, 6, 31, 32, 33, 37, 64, 65, 73)
+EDGE_F = (1, 3, 40, 250, 1250, 10_000, 10_001)
+TIMED = [(37, F) for F in (10_000, 1250, 250, 40, 1)] + [(73, F) for F in (10_000, 1250, 40)]
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+
+def _bound(F, n) -> tuple[float, str]:
+    """Least time (ms) for F damped solves of size n, and what bounds it:
+    the lower triangle of A, g and lam read once and x written once, against
+    n^3/3 + 2n^2 flops per system."""
+    nbytes = F * 4 * (n * (n + 1) // 2 + 2 * n + 1)
+    flops = F * (n**3 / 3 + 2 * n**2)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device time per call: the sum of the call's kernel and copy durations
+    (torch.profiler, CUPTI), free of the host's launch overhead."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us * 1e-3 / reps
+
+
+def _stream_ms(fn, reps: int) -> float:
+    """Time per call of back-to-back calls on the stream (CUDA events): the
+    device time, or the host's dispatch time where that is longer."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _ptxas_summary(log: str) -> list[str]:
+    """One entry per kernel instantiation (N): registers, spills, stack."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"ILi(\d+)E", ln)  # spd_chol_warp_kernel<N>
+        if "Compiling entry function" in ln and m:
+            name = f"N={m[1]}"
+        elif name and "spill" in ln:
+            stack = ln.strip().split(" bytes stack frame")[0]
+            spills = ln.split(",")[1].strip().split(" ")[0] + "/" + ln.split(",")[2].strip().split(" ")[0]
+        elif name and "Used" in ln:
+            regs = ln.split("Used ")[1].split(" ")[0]
+            out.append(f"{name}: {regs} regs, spill st/ld {spills} B, stack {stack} B")
+            name = None
+    return out
 
 
 def phase_kernel(spd, device) -> dict:
-    gen = torch.Generator().manual_seed(0)
-    worst = 0.0
-    main_err = None
-    shapes = [(6, F) for F in (1, 40, 1000, 10_000)]
-    shapes += [(37, F) for F in (1, 40, 250, 1000, 1250, 10_000)]
-    shapes += [(73, F) for F in (1, 40, 1000, 10_000)]
-    for n, F in shapes:
-        A, g, lam = _systems(F, n, gen, device)
-        eye = torch.eye(n, device=device, dtype=torch.float64)
-        for lam_ in (None, lam):
-            x = spd.spd_solve(A, g, lam_)
-            plain = spd.spd_solve_plain(A, g, lam_)
-            A64 = A.double() + (0 if lam_ is None else lam_.double()[:, None, None] * eye)
-            x64 = torch.linalg.solve(A64, g.double())
-            torch.cuda.synchronize()
-            scale = float(plain.abs().max())
-            err_plain = float((x - plain).abs().max()) / scale
-            err_f64 = float((x.double() - x64).abs().max()) / float(x64.abs().max())
-            print(f"kernel n={n:2d} F={F:5d} lam={lam_ is not None!s:5}: "
-                  f"rel err vs plain {err_plain:.3e}, vs f64 {err_f64:.3e}")
-            if not (err_plain < KERNEL_REL_TOL and err_f64 < KERNEL_REL_TOL):
-                raise AssertionError(f"kernel disagrees at n={n} F={F} (bound {KERNEL_REL_TOL})")
-            worst = max(worst, err_plain)
-            if (n, F) == (37, 10_000) and lam_ is not None:
-                main_err = float((x - plain).abs().max())
-    bad = torch.diag(torch.tensor([1.0, -2.0, 3.0], device=device))[None].contiguous()
-    xb = spd.spd_solve(bad, torch.ones(1, 3, device=device))
-    torch.cuda.synchronize()
-    if torch.isfinite(xb).any():
-        raise AssertionError(f"indefinite system gave a finite x: {xb}")
-    print(f"kernel: indefinite system -> {xb.tolist()} (non-finite, as on the TPU)")
+    """The kernel against its plain version and float64; NaN isolation."""
+    from _torch_spd_cases import indefinite_batch, spd_systems
 
+    max_n = spd._kernel()[1]
+    gen = torch.Generator(device=device).manual_seed(0)
+    worst = {"plain": 0.0, "f64": 0.0}
+    main_err = None
+    for n in EDGE_N + (max_n,):
+        eye = torch.eye(n, device=device, dtype=torch.float64)
+        for F in EDGE_F:
+            A, g, lam = spd_systems(F, n, gen, device)
+            for lam_ in (None, lam):
+                x = spd.spd_solve(A, g, lam_)
+                plain = spd.spd_solve_plain(A, g, lam_)
+                A64 = A.double() + (0 if lam_ is None else lam_.double()[:, None, None] * eye)
+                x64 = torch.linalg.solve(A64, g.double())
+                torch.cuda.synchronize()
+                err_plain = float((x - plain).abs().max() / plain.abs().max())
+                err_f64 = float((x.double() - x64).abs().max() / x64.abs().max())
+                if not (err_plain < KERNEL_REL_TOL and err_f64 < KERNEL_REL_TOL):
+                    raise AssertionError(f"kernel disagrees at n={n} F={F} lam={lam_ is not None}: "
+                                         f"{err_plain:.3e} vs plain, {err_f64:.3e} vs f64 (bound {KERNEL_REL_TOL})")
+                worst["plain"] = max(worst["plain"], err_plain)
+                worst["f64"] = max(worst["f64"], err_f64)
+                if (n, F) == (37, 10_000) and lam_ is not None:
+                    main_err = float((x - plain).abs().max())
+            del A, g, lam
+        print(f"kernel n={n:2d}: F in {EDGE_F}, lam and none: ok")
+    print(f"kernel: worst rel err vs plain {worst['plain']:.3e}, vs f64 {worst['f64']:.3e} "
+          f"over n in {EDGE_N + (max_n,)} (bound {KERNEL_REL_TOL})")
+
+    for n in (6, 37, 73):
+        A, g, mid = indefinite_batch(9, n, seed=n)
+        A, g = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (A, g))
+        fin = torch.isfinite(spd.spd_solve(A, g)).all(dim=1).tolist()
+        if fin != [f != mid for f in range(9)]:
+            raise AssertionError(f"indefinite system {mid} of 9 (n={n}): finite per system {fin}")
+        print(f"kernel: n={n} batch of 9, system {mid} indefinite at column {n // 2}: only its x is non-finite")
+
+    return {"max_abs_err": main_err}
+
+
+def phase_kernel_times(spd, device) -> dict:
+    """Kernel, plain version and library call in turns at each timed shape:
+    time per call on the stream for every shape first, then device time, so
+    that no profiler session precedes the stream timing."""
+    from _torch_spd_cases import spd_systems
+
+    gen = torch.Generator(device=device).manual_seed(1)
+    cases = {}
+    for n, F in TIMED:
+        A, g, lam = spd_systems(F, n, gen, device)
+        A_lam = A + lam[:, None, None] * torch.eye(n, device=device)  # outside the timed window
+        cases[(n, F)] = {
+            "kernel": lambda A=A, g=g, lam=lam: spd.spd_solve_cuda(A, g, lam),
+            "plain": lambda A=A, g=g, lam=lam: spd.spd_solve_plain(A, g, lam),
+            "library": lambda A_lam=A_lam, g=g: torch.linalg.solve(A_lam, g),
+        }
+    reps = 20
     times = {}
-    for F in (10_000, 1250, 40, 1):
-        A, g, lam = _systems(F, 37, gen, device)
-        acc = {"kernel": [], "plain": []}
-        for name in ("plain", "kernel", "kernel", "plain"):
-            fn = spd.spd_solve_cuda if name == "kernel" else spd.spd_solve_plain
-            for _ in range(3):
-                fn(A, g, lam)
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            reps = 50
-            e0.record()
-            for _ in range(reps):
-                fn(A, g, lam)
-            e1.record()
-            torch.cuda.synchronize()
-            acc[name].append(e0.elapsed_time(e1) / reps)
-        times[F] = {k: sum(v) / len(v) for k, v in acc.items()}
-        print(f"kernel time n=37 F={F:5d}: kernel {times[F]['kernel']:.4f} ms, "
-              f"plain (cholesky_ex + cholesky_solve) {times[F]['plain']:.4f} ms")
-    return {"max_abs_err": main_err, "worst_rel_err": worst, "times": times}
+    for how, timer in (("stream", _stream_ms), ("device", _device_ms)):
+        for key, fns in cases.items():
+            acc = {k: [] for k in fns}
+            for name in ("kernel", "plain", "library", "library", "plain", "kernel"):
+                for _ in range(3):
+                    fns[name]()
+                torch.cuda.synchronize()
+                acc[name].append(timer(fns[name], reps))
+            for name, v in acc.items():
+                times.setdefault(key, {}).setdefault(name, {})[how] = sum(v) / len(v)
+    for (n, F), t in times.items():
+        bound_ms, bound_by = _bound(F, n)
+        t["bound_ms"], t["bound_by"] = bound_ms, bound_by
+        print(f"kernel time n={n} F={F:5d}, ms per call on the stream (device ms): "
+              f"kernel {t['kernel']['stream']:.4f} ({t['kernel']['device']:.4f}), "
+              f"plain {t['plain']['stream']:.4f} ({t['plain']['device']:.4f}), "
+              f"torch.linalg.solve {t['library']['stream']:.4f} ({t['library']['device']:.4f}); "
+              f"bound {bound_ms:.4f} ms ({bound_by}), kernel device time at "
+              f"{100 * bound_ms / t['kernel']['device']:.1f}% of it")
+    return times
 
 
 def phase_main(spd, device, bundle) -> dict:
@@ -175,6 +273,9 @@ def phase_main(spd, device, bundle) -> dict:
         f"ik residual < {IK_RESID_MAX * 1e3} mm": ik_resid < IK_RESID_MAX,
         f"offset error < {OFFSET_ERR_MAX * 1e3} mm": off_err < OFFSET_ERR_MAX,
     }
+    for what, got in (("fit residual", fit_resid), ("ik residual", ik_resid), ("offset error", off_err)):
+        ref = FIRST_KERNEL_MM[what]
+        checks[f"{what} within 2% of {ref} mm"] = abs(got * 1e3 - ref) <= 0.02 * ref
     for what, ok in checks.items():
         print(f"main: check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
@@ -190,7 +291,7 @@ def phase_reference(device, bundle) -> None:
     from stac_mjx_tpu_torch.stac import Stac
 
     cfg = dict(THROUGHPUT, n_frames_per_clip=32, ik_hier_stride=4, ik_hier_fine_iters=3)
-    kp, _, _, _ = make_recording(bundle, n_frames=64, seed=3)
+    kp, _, _, _ = make_recording(bundle, n_frames=64, seed=3, device="cpu")
     out = {}
     for where, dev, dt in (("card", device, torch.float32), ("cpu", "cpu", torch.float64)):
         st = Stac(bundle, cfg, model={"N_ITERS": 2}, device=dev, dtype=dt)
@@ -209,8 +310,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]  # the port; the SPD test cases
+    from stac_mjx_tpu_torch.bridge import load_bundle
+    from stac_mjx_tpu_torch.ops import _build, spd
+
+    # Everything runs on cuda:0; nvidia-smi is asked for that card by its UUID
+    # (nvidia-smi's indices follow the PCI order, CUDA's need not).
+    uuid = str(torch.cuda.get_device_properties(0).uuid)
     smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", "-i", uuid if uuid.startswith("GPU-") else f"GPU-{uuid}",
+         "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)
@@ -218,22 +327,22 @@ def main() -> int:
     print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     device = torch.device("cuda:0")
 
-    sys.path.insert(0, str(ROOT))
-    from stac_mjx_tpu_torch.bridge import load_bundle
-    from stac_mjx_tpu_torch.ops import _build, spd
-
     t0 = time.perf_counter()
     spd._kernel()
     info = _build.BUILD_INFO["spd_chol"]
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
-    print(f"build: spd_chol.cu in {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s) {regs}")
+    print(f"build: spd_chol.cu in {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s)")
+    for ln in _ptxas_summary(info["log"]):
+        print(f"build: ptxas {ln}")
 
     kern = phase_kernel(spd, device)
     bundle = load_bundle()
     main_run = phase_main(spd, device, bundle)
     phase_reference(device, bundle)
+    times = phase_kernel_times(spd, device)
 
-    t = kern["times"][10_000]
+    # ms, plain_ms and library_ms: time per call on the stream, as since the
+    # first version of this line; the *device_ms keys: torch.profiler device time.
+    t = times[(37, 10_000)]
     print(json.dumps({"kernels": [{
         "name": "spd_chol_solve_f32",
         "route": "cuda",
@@ -241,10 +350,16 @@ def main() -> int:
         "replaces": "stac_mjx_tpu/ops/spd.py:42",
         "launches": main_run["launches"],
         "max_abs_err": kern["max_abs_err"],
-        "ms": t["kernel"],
-        "plain_ms": t["plain"],
+        "ms": t["kernel"]["stream"],
+        "plain_ms": t["plain"]["stream"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": t["library"]["stream"],
+        "device_ms": t["kernel"]["device"],
+        "plain_device_ms": t["plain"]["device"],
+        "library_device_ms": t["library"]["device"],
     }]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0
 
 

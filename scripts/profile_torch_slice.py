@@ -5,8 +5,9 @@ clips) of ``chip_smoke.py``'s configuration twice each: once untraced for
 the wall time, once under ``torch.profiler``. For each phase it prints the
 wall seconds (untraced and traced), the device busy time (the sum of kernel
 durations; everything runs on one stream, so kernels do not overlap), the
-idle share of the traced wall time, the kernel launch count, and the kernels
-that take the most device time. The full kernel and operator tables go
+idle share of the traced wall time, the kernel launch count, the SPD
+kernel's device time and launches, and the kernels that take the most
+device time. The full kernel and operator tables go
 under ``--out``.
 
     python3 scripts/profile_torch_slice.py [--out DIR]   (default: profile_out/)
@@ -79,6 +80,9 @@ def main(argv: list[str]) -> int:
         print(f"{name}: {frames[name]} frames, wall {wall:.4f} s untraced ({frames[name] / wall:.1f} frames/s), "
               f"{traced:.4f} s traced; device busy {busy * 1e3:.3f} ms, idle share "
               f"{1 - busy / traced:.4f} of the traced wall; {launches} kernel launches")
+        spd = [(c, t) for k, c, t in rows if "spd_chol" in k]
+        print(f"  SPD kernel (spd_chol_*): {sum(t for _, t in spd) * 1e3:.3f} ms device time "
+              f"over {sum(c for c, _ in spd)} launches")
         for kname, count, t in rows[:12]:
             print(f"  {t * 1e3:9.3f} ms {count:7d}x  {kname[:110]}")
         (out / f"{name}_kernels.txt").write_text(

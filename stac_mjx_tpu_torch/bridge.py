@@ -54,6 +54,21 @@ class FitModel:
     timestep: float
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """The entry points' device: the card unless the caller asks for the CPU.
+
+    Raises when CUDA is asked for (the default) and there is no card, rather
+    than dropping quietly to the CPU.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "stac_mjx_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def load_bundle(path: str | Path = BUNDLE_PATH) -> dict[str, np.ndarray]:
     """The bundle's arrays (no pickled objects: names are unicode arrays)."""
     with np.load(path, allow_pickle=False) as z:

@@ -13,7 +13,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from stac_mjx_tpu_torch.bridge import fit_model_from_arrays
+from stac_mjx_tpu_torch.bridge import fit_model_from_arrays, resolve_device
 from stac_mjx_tpu_torch.models.kinematics import (
     JNT_BALL,
     JNT_FREE,
@@ -28,7 +28,7 @@ def make_recording(
     n_frames: int = 200,
     seed: int = 0,
     noise_m: float = 0.0,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     dtype: torch.dtype = torch.float32,
 ):
     """Mocap by FK of smooth ground-truth motion with perturbed offsets.
@@ -37,8 +37,10 @@ def make_recording(
     kp_names, true_offsets (K, 3) float64, qs (n_frames, nq) numpy in
     ``dtype``). Hinges/slides follow in-range sinusoids, ball joints
     rotation-vector sinusoids about two axes, the free root a slow wander
-    and roll. ``noise_m`` adds iid gaussian keypoint noise in meters.
+    and roll. ``noise_m`` adds iid gaussian keypoint noise in meters. Runs
+    on the card unless ``device`` says otherwise; raises if there is none.
     """
+    device = resolve_device(device)
     fm = fit_model_from_arrays(bundle, device, dtype)
     params = fm.params
     site_idxs = torch.as_tensor(fm.site_idxs, device=device)

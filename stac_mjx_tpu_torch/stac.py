@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from stac_mjx_tpu_torch import pipeline
-from stac_mjx_tpu_torch.bridge import MODEL_SCALARS, fit_model_from_arrays
+from stac_mjx_tpu_torch.bridge import MODEL_SCALARS, fit_model_from_arrays, resolve_device
 from stac_mjx_tpu_torch.models.kinematics import JNT_FREE, JNT_SLIDE
 from stac_mjx_tpu_torch.ops.stac_core import StacCore
 from stac_mjx_tpu_torch.utils.batching import batch_kp_data
@@ -49,15 +49,16 @@ class Stac:
         bundle: Mapping[str, np.ndarray],
         stac: Mapping,
         model: Mapping | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         dtype: torch.dtype = torch.float32,
     ):
         """bundle: arrays from ``bridge.load_bundle``; stac: stac config keys
-        (a mapping or a dataclass); model: overrides of the bundle's MODEL_SCALARS."""
+        (a mapping or a dataclass); model: overrides of the bundle's MODEL_SCALARS.
+        Runs on the card unless ``device`` says otherwise; raises if there is none."""
         self.stac_cfg = dataclasses.asdict(stac) if dataclasses.is_dataclass(stac) else dict(stac)
         self.model_cfg = {k: np.asarray(bundle[k]).item() for k in MODEL_SCALARS}
         self.model_cfg.update(model or {})
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         get = self.stac_cfg.get
 

@@ -18,6 +18,7 @@ from _torch_common import REPO, jax_stac
 from stac_mjx_tpu.models import firstparty as jax_firstparty
 from stac_mjx_tpu_torch import bridge
 from stac_mjx_tpu_torch.models import firstparty
+from stac_mjx_tpu_torch.stac import Stac
 from stac_mjx_tpu_torch.utils import prng
 
 
@@ -58,7 +59,7 @@ def test_permutation_is_bit_exact(n):
 def test_make_recording_matches_jax():
     js = jax_stac({})
     kp_j, names_j, off_j, qs_j = jax_firstparty.make_recording(js.cfg, n_frames=120, seed=0, base_path=REPO)
-    kp_t, names_t, off_t, qs_t = firstparty.make_recording(bridge.load_bundle(), n_frames=120, seed=0)
+    kp_t, names_t, off_t, qs_t = firstparty.make_recording(bridge.load_bundle(), n_frames=120, seed=0, device="cpu")
     assert names_t == names_j
     # The same numpy RNG sequence over the same joint table: identical
     # ground truth; keypoints from two float32 FKs, atol 1e-5 m.
@@ -77,9 +78,10 @@ from stac_mjx_tpu_torch.bridge import load_bundle
 from stac_mjx_tpu_torch.models.firstparty import make_recording
 from stac_mjx_tpu_torch.stac import Stac
 b = load_bundle()
-kp, _, _, _ = make_recording(b, n_frames=32, seed=1)
+kp, _, _, _ = make_recording(b, n_frames=32, seed=1, device="cpu")
 st = Stac(b, dict(pose_mode="lockstep", q_solver="gn-lm", skip_part_opt=True, fk_impl="jump",
-                  n_frames_per_clip=16, ik_hier_stride=4, ik_hier_fine_iters=3, ik_return_full=False))
+                  n_frames_per_clip=16, ik_hier_stride=4, ik_hier_fine_iters=3, ik_return_full=False),
+          device="cpu")
 out = st.ik_only(kp, st._offsets)
 assert out.qpos.shape == (32, 44) and np.isfinite(out.qpos).all()
 print("NO_HOST_DEPS_OK")
@@ -92,6 +94,24 @@ def test_card_path_runs_without_jax_mujoco_yaml_h5py():
     )
     assert proc.returncode == 0, proc.stderr
     assert "NO_HOST_DEPS_OK" in proc.stdout
+
+
+_SMALL_CFG = dict(pose_mode="lockstep", q_solver="gn-lm", skip_part_opt=True, fk_impl="jump")
+
+
+def test_entry_points_default_to_the_card():
+    """Without a device, Stac and make_recording run on the card; with no
+    card they raise instead of dropping quietly to the CPU."""
+    b = bridge.load_bundle()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Stac(b, _SMALL_CFG)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            firstparty.make_recording(b, n_frames=4)
+        return
+    assert Stac(b, _SMALL_CFG).device.type == "cuda"
+    kp, _, _, _ = firstparty.make_recording(b, n_frames=4)
+    assert kp.is_cuda
 
 
 def test_port_never_imports_host_packages():

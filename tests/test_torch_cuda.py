@@ -10,15 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_spd_cases import indefinite_batch, spd_systems
 from stac_mjx_tpu_torch.ops import spd
-
-
-def _systems(F, n, seed):
-    """Random J^T J + 1e-4 I systems (as the LM builds them), rhs and damping."""
-    rng = np.random.default_rng(seed)
-    J = rng.normal(size=(F, 3 * n, n))
-    A = np.einsum("frd,fre->fde", J, J) + 1e-4 * np.eye(n)
-    return (a.astype(np.float32) for a in (A, rng.normal(size=(F, n)), np.abs(rng.normal(size=(F,)))))
 
 
 @pytest.fixture
@@ -28,13 +21,39 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# Register-layout edges of the kernel (one row block ends at 32 rows, the
+# shipped sizes are 6, 37 and 73) and batch sizes that are not a multiple of
+# the systems per CTA; "max" is the kernel's own largest n.
+EDGE_N = [1, 6, 31, 32, 33, 37, 64, 65, 73, "max"]
+EDGE_F = [1, 3, 40, 250, 1250, 10_000, 10_001]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [6, 37, 73])
+def test_cuda_kernel_isolates_the_indefinite_system(cuda_device, n):
+    """Only the middle system fails (at column n // 2): only its x is non-finite."""
+    A, g, mid = indefinite_batch(9, n, seed=n)
+    At, gt = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (A, g))
+    x = spd.spd_solve(At, gt).cpu()
+    assert not torch.isfinite(x[mid]).any()
+    rest = [f for f in range(9) if f != mid]
+    assert torch.isfinite(x[rest]).all()
+    A32, g32 = (a[rest].astype(np.float32).astype(np.float64) for a in (A, g))
+    want = np.linalg.solve(A32, g32[..., None])[..., 0]
+    np.testing.assert_allclose(x[rest].double().numpy(), want, rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", EDGE_N)
 def test_cuda_kernel_matches_plain(cuda_device, n):
-    """The CUDA kernel against the plain version on the card, and the guards."""
-    for F in (1, 40, 1000):
-        A, g, lam = _systems(F, n, seed=n * F)
-        A, g, lam = (torch.as_tensor(a, device=cuda_device) for a in (A, g, lam))
+    """The CUDA kernel against the plain version and a float64 solve on the
+    card, with and without lam, and the guards."""
+    max_n = spd._kernel()[1]
+    n = max_n if n == "max" else n
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    eye64 = torch.eye(n, dtype=torch.float64, device=cuda_device)
+    for F in EDGE_F:
+        A, g, lam = spd_systems(F, n, gen, cuda_device)
         for l in (None, lam):
             before = spd.KERNEL_LAUNCHES
             x = spd.spd_solve(A, g, l)
@@ -43,12 +62,17 @@ def test_cuda_kernel_matches_plain(cuda_device, n):
             torch.cuda.synchronize()
             # float32 Cholesky in another summation order.
             torch.testing.assert_close(x, want, rtol=2e-3, atol=2e-5)
+            # The bound chip_smoke.py holds it to: max |x - x64| / max |x64|.
+            A64 = A.double() if l is None else A.double() + l.double()[:, None, None] * eye64
+            x64 = torch.linalg.solve(A64, g.double())
+            assert float((x.double() - x64).abs().max() / x64.abs().max()) < 1e-4, (n, F, l is None)
     bad = torch.diag(torch.tensor([1.0, -1.0], device=cuda_device))[None]
     assert not torch.isfinite(spd.spd_solve(bad, torch.ones(1, 2, device=cuda_device))).any()
+    A3, g3 = torch.rand(2, 3, 3, device=cuda_device), torch.rand(2, 3, device=cuda_device)
     with pytest.raises(ValueError):
-        spd.spd_solve(A.double(), g.double())
+        spd.spd_solve(A3.double(), g3.double())
     with pytest.raises(ValueError):
-        spd.spd_solve(A.transpose(1, 2), g)
-    with pytest.raises(ValueError):  # past the kernel's shared-memory budget
-        big = torch.eye(97, device=cuda_device)[None].contiguous()
-        spd.spd_solve(big, torch.ones(1, 97, device=cuda_device))
+        spd.spd_solve(A3.transpose(1, 2), g3)
+    with pytest.raises(ValueError):  # past the kernel's largest n
+        big = torch.eye(max_n + 1, device=cuda_device)[None].contiguous()
+        spd.spd_solve(big, torch.ones(1, max_n + 1, device=cuda_device))

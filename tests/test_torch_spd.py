@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from conftest import x64_mode
+from _torch_spd_cases import indefinite_batch
 from stac_mjx_tpu.ops.spd import _spd_solve_xla_lanes, spd_solve_pallas_lanes, spd_solve_xla
 from stac_mjx_tpu_torch.ops import spd
 
@@ -88,6 +89,17 @@ def test_indefinite_gives_nan_in_both_packages():
     assert not np.isfinite(want[1]).any() and not np.isfinite(got[1].numpy()).any()
     assert np.isfinite(got[[0, 2]].numpy()).all()
     np.testing.assert_allclose(got[[0, 2]].numpy(), want[[0, 2]], rtol=2e-3, atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [6, 37, 73])
+def test_plain_isolates_the_indefinite_system(n):
+    """Only the middle system fails (at column n // 2): only its x is
+    non-finite, the others are the float64 solve."""
+    A, g, mid = indefinite_batch(9, n, seed=n)
+    x = spd.spd_solve_plain(torch.as_tensor(A), torch.as_tensor(g)).numpy()
+    assert not np.isfinite(x[mid]).any()
+    rest = [f for f in range(9) if f != mid]
+    np.testing.assert_allclose(x[rest], np.linalg.solve(A[rest], g[rest][..., None])[..., 0], rtol=1e-8, atol=1e-10)
 
 
 def test_cpu_never_launches_the_kernel():
