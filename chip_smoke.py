@@ -16,14 +16,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    pointer-doubling FK, no part passes, hierarchical ik 8/6) on the
    first-party model: a 10,000-frame recording made on the card, the fit on
    its first 250 frames, then ik on all 10,000 frames in 40 clips of 250;
-   the kernel's launch count must rise in both; residuals and the offset
-   error against the ground truth must stay under stated bounds;
+   the kernel's launch count must be 112 in the fit and 34 in the ik;
+   residuals and the offset error against the ground truth must stay under
+   stated bounds;
 5. reference: a small fit + ik on the card against the same run on the CPU
    in float64 (the path the CPU tests hold against the JAX package);
-6. kernel times: in turns, the kernel, the plain version and one library
+6. parts: the main path with the per-part refinement passes on (the
+   batched part schedule in the fit, 6 parts x 250 frames = 1,500 items;
+   the part chain in the ik, 6 x 10,000 items being over the batched cap):
+   launches must be exactly 210 and 118, residuals under the same bounds;
+   then a small card-f32 against CPU-f64 run of that configuration;
+7. K1 on part systems: A, g and lam captured from one iteration of the
+   fit's batched part pass (masked dofs leave lam-only rows), the kernel
+   against its plain version and a float64 solve;
+8. kernel times: in turns, the kernel, the plain version and one library
    call (torch.linalg.solve) at the main path's shapes, as time per call on
    the stream (CUDA events) and as device time (torch.profiler), each
-   beside its bound.
+   beside its bound;
+9. default: the JAX package's default configuration (sequential pose mode,
+   projected gradient with autograd through the level-scan FK, the part
+   chain, two root passes) through ``Stac(bundle, {"n_frames_per_clip":
+   ...})``: the time and kernel launches per PG iteration, residuals, and
+   the same run on the CPU in float64; then pg-jaxopt on the synth model
+   from the synth golden's keypoints, against the golden;
+
+Cuts, all of depth (the model keeps its full width, nq 44, nv 37, and the
+solver settings, N_ITER_Q 400 and FTOL 1e-4, stay): the default phase fits
+DEFAULT_FIT frames with N_ITERS 1 (the model's is 6) and runs the ik on
+DEFAULT_CLIPS clips of DEFAULT_CLIP frames, so that it stays within
+DEFAULT_BUDGET_S on the card: each PG iteration runs the scan FK forward and
+backward (~2,400 small kernels) and the solves of a sequential pass follow
+one another frame by frame; the reference phases run 40-64 frames with
+N_ITERS 2.
 
 The second-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -31,6 +55,7 @@ The second-to-last line is {"kernels": [...]} and the last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -67,6 +92,18 @@ FIT_RESID_MAX = 5e-3
 IK_RESID_MAX = 5e-3
 OFFSET_ERR_MAX = 5e-3
 KERNEL_REL_TOL = 1e-4  # f32 Cholesky vs f32 cholesky_ex / f64 solve, max |dx| / max |x|
+# K1 launches of the main path: the fit's root solve (14) and 7 pose passes
+# of 14 LM iterations; the ik's root solve, coarse and fine passes (14 + 14
+# + 6). The part passes add one 14-iteration solve per pose pass in the fit
+# (batched) and 6 chained ones in the ik.
+MAIN_LAUNCHES = (112, 34)
+PARTS_LAUNCHES = (112 + 7 * 14, 34 + 6 * 14)
+# The default phase's depth (see the cuts above) and its bounds: the card's
+# mean residuals within 5% of the CPU's float64 run (PG stops on a
+# tolerance, so float32 and float64 end at other iterates).
+DEFAULT_FIT, DEFAULT_CLIPS, DEFAULT_CLIP = 5, 40, 5
+DEFAULT_REL = 0.05
+DEFAULT_BUDGET_S = 150.0
 
 
 def _sync_time(fn):
@@ -90,7 +127,7 @@ def _resid(markers, kp, n) -> float:
 # at the rodent's n=73.
 EDGE_N = (1, 6, 31, 32, 33, 37, 64, 65, 73)
 EDGE_F = (1, 3, 40, 250, 1250, 10_000, 10_001)
-TIMED = [(37, F) for F in (10_000, 1250, 250, 40, 1)] + [(73, F) for F in (10_000, 1250, 40)]
+TIMED = [(37, F) for F in (10_000, 1500, 1250, 250, 40, 1)] + [(73, F) for F in (10_000, 1250, 40)]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -263,8 +300,8 @@ def phase_main(spd, device, bundle) -> dict:
           f"kernel launches {ik_launches}")
     print(f"main: offset error vs ground truth {off_err * 1e3:.4f} mm (mean abs over {fit.offsets.size} coords)")
     checks = {
-        "fit launched the kernel": fit_launches > 0,
-        "ik launched the kernel": ik_launches > 0,
+        f"fit launched the kernel {MAIN_LAUNCHES[0]} times": fit_launches == MAIN_LAUNCHES[0],
+        f"ik launched the kernel {MAIN_LAUNCHES[1]} times": ik_launches == MAIN_LAUNCHES[1],
         "qpos finite, right shapes": bool(
             np.isfinite(fit.qpos).all() and np.isfinite(ik.qpos).all()
             and fit.qpos.shape == (N_FIT, 44) and ik.qpos.shape == (N_IK, 44)
@@ -280,7 +317,7 @@ def phase_main(spd, device, bundle) -> dict:
         print(f"main: check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise AssertionError("main path checks failed")
-    return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s}
+    return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s, "kp": kp, "true_off": true_off}
 
 
 def phase_reference(device, bundle) -> None:
@@ -304,6 +341,233 @@ def phase_reference(device, bundle) -> None:
     for a, b in zip(out["card"], out["cpu"]):
         if not abs(a - b) <= 0.02 * b:
             raise AssertionError(f"card and CPU reference disagree: {out}")
+
+
+@contextlib.contextmanager
+def _one_cpu_thread():
+    """The CPU float64 reference runs tiny tensors: intra-op threads only add
+    synchronisation there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+def _check_all(phase: str, checks: dict) -> None:
+    for what, ok in checks.items():
+        print(f"{phase}: check {what}: {'ok' if ok else 'FAILED'}")
+    if not all(checks.values()):
+        raise AssertionError(f"{phase} checks failed")
+
+
+def phase_parts(spd, device, bundle, kp, true_off) -> dict:
+    """The main path with the part passes on: the batched part schedule in
+    the fit, the chain in the ik (its P x F items exceed the cap)."""
+    from stac_mjx_tpu_torch import pipeline
+    from stac_mjx_tpu_torch.models.firstparty import make_recording
+    from stac_mjx_tpu_torch.stac import Stac
+
+    cfg = dict(THROUGHPUT, skip_part_opt=False, n_fit_frames=N_FIT, n_frames_per_clip=CLIP)
+    stac = Stac(bundle, cfg, device=device)
+    P, cap = len(stac._static_cfg.indiv_parts), pipeline._PART_BATCH_MAX_ITEMS
+    for what, items in (("fit", P * N_FIT), ("ik", P * N_IK)):
+        schedule = "batched" if stac._static_cfg.part_opt_mode == "batched" and items <= cap else "chain"
+        print(f"parts: {what} part schedule {schedule} ({P} parts x {items // P} frames = {items} items, cap {cap})")
+    spd.KERNEL_LAUNCHES = 0
+    fit, fit_s = _sync_time(lambda: stac.fit_offsets(kp[:N_FIT]))
+    fit_launches = spd.KERNEL_LAUNCHES
+    ik, ik_s = _sync_time(lambda: stac.ik_only(kp, fit.offsets))
+    ik_launches = spd.KERNEL_LAUNCHES - fit_launches
+    fit_resid = _resid(fit.marker_sites, fit.kp_data, N_FIT)
+    _, _, ik_markers = stac.compute_full_outputs(ik.qpos)
+    ik_resid = _resid(ik_markers, kp.cpu().numpy(), N_IK)
+    off_err = float(np.abs(fit.offsets - true_off).mean())
+    print(f"parts: fit {N_FIT} frames in {fit_s:.3f} s, mean marker residual {fit_resid * 1e3:.4f} mm, "
+          f"kernel launches {fit_launches}")
+    print(f"parts: ik {N_IK} frames in {ik_s:.3f} s ({N_IK / ik_s:.1f} frames/s), mean marker residual "
+          f"{ik_resid * 1e3:.4f} mm, kernel launches {ik_launches}")
+    print(f"parts: offset error vs ground truth {off_err * 1e3:.4f} mm")
+    _check_all("parts", {
+        f"fit launched the kernel {PARTS_LAUNCHES[0]} times": fit_launches == PARTS_LAUNCHES[0],
+        f"ik launched the kernel {PARTS_LAUNCHES[1]} times": ik_launches == PARTS_LAUNCHES[1],
+        "qpos finite": bool(np.isfinite(fit.qpos).all() and np.isfinite(ik.qpos).all()),
+        f"fit residual < {FIT_RESID_MAX * 1e3} mm": fit_resid < FIT_RESID_MAX,
+        f"ik residual < {IK_RESID_MAX * 1e3} mm": ik_resid < IK_RESID_MAX,
+        f"offset error < {OFFSET_ERR_MAX * 1e3} mm": off_err < OFFSET_ERR_MAX,
+    })
+    # The same configuration small, card f32 against CPU f64, on phase
+    # reference's recording (40 fit frames batch their 6 x 40 part items; the
+    # 64 ik frames too).
+    small = dict(cfg, n_frames_per_clip=32, ik_hier_stride=4, ik_hier_fine_iters=3)
+    kp_s, _, _, _ = make_recording(bundle, n_frames=64, seed=3, device="cpu")
+    out = {}
+    for where, dev, dt in (("card", device, torch.float32), ("cpu", "cpu", torch.float64)):
+        with _one_cpu_thread():
+            st = Stac(bundle, small, model={"N_ITERS": 2}, device=dev, dtype=dt)
+            f = st.fit_offsets(kp_s[:40])
+            i = st.ik_only(kp_s, f.offsets)
+            _, _, markers = st.compute_full_outputs(i.qpos)
+        out[where] = (_resid(f.marker_sites, f.kp_data, 40), _resid(markers, kp_s.numpy(), 64))
+    print(f"parts: small fit/ik mean residual card {out['card'][0] * 1e3:.4f}/{out['card'][1] * 1e3:.4f} mm, "
+          f"cpu f64 {out['cpu'][0] * 1e3:.4f}/{out['cpu'][1] * 1e3:.4f} mm")
+    _check_all("parts", {"small card and cpu f64 residuals within 2%":
+                         all(abs(a - b) <= 0.02 * b for a, b in zip(out["card"], out["cpu"]))})
+    return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s}
+
+
+def phase_part_systems(spd, device, bundle, kp) -> None:
+    """K1 on the systems of the fit's batched part pass: A, g and lam of one
+    LM iteration, captured on the card, against the plain version and float64."""
+    from stac_mjx_tpu_torch.ops import gn_ik
+    from stac_mjx_tpu_torch.stac import Stac
+
+    captured = []
+    solve = gn_ik.spd_solve
+
+    def capture(A, g, lam=None):
+        if not captured and A.shape[0] == 6 * N_FIT and lam is not None:
+            captured.append((A.clone(), g.clone(), lam.clone()))
+        return solve(A, g, lam)
+
+    cfg = dict(THROUGHPUT, skip_part_opt=False, n_frames_per_clip=CLIP)
+    stac = Stac(bundle, cfg, model={"N_ITERS": 1}, device=device)
+    gn_ik.spd_solve = capture
+    try:
+        stac.fit_offsets(kp[:N_FIT])
+    finally:
+        gn_ik.spd_solve = solve
+    A, g, lam = captured[0]
+    n = A.shape[-1]
+    x = spd.spd_solve_cuda(A, g, lam)
+    plain = spd.spd_solve_plain(A, g, lam)
+    A64 = A.double() + lam.double()[:, None, None] * torch.eye(n, dtype=torch.float64, device=device)
+    x64 = torch.linalg.solve(A64, g.double())
+    torch.cuda.synchronize()
+    lam_rows = int((A.abs().sum(-1) == 0).sum())
+    err_plain = float((x - plain).abs().max() / plain.abs().max())
+    err_f64 = float((x.double() - x64).abs().max() / x64.abs().max())
+    print(f"part systems: A {tuple(A.shape)} from the fit's batched part pass, {lam_rows} lam-only rows; "
+          f"kernel vs plain {err_plain:.3e}, vs f64 {err_f64:.3e} (bound {KERNEL_REL_TOL})")
+    _check_all("part systems", {
+        "kernel within bound of plain and f64": err_plain < KERNEL_REL_TOL and err_f64 < KERNEL_REL_TOL,
+        "x finite": bool(torch.isfinite(x).all()),
+    })
+
+
+def _pg_iterations():
+    """Counts the iterations of every PG solve (its slowest lane's) while active."""
+    from stac_mjx_tpu_torch.ops import solver
+
+    counts = {}
+    run = solver.ProjectedGradient.run
+
+    def counted(self, fun, x0, lb, ub):
+        res = run(self, fun, x0, lb, ub)
+        counts["iters"] += int(res.iters.max())
+        counts["solves"] += 1
+        return res
+
+    @contextlib.contextmanager
+    def active():
+        counts.update(iters=0, solves=0)
+        solver.ProjectedGradient.run = counted
+        try:
+            yield counts
+        finally:
+            solver.ProjectedGradient.run = run
+
+    return active
+
+
+def phase_default(device, bundle, kp) -> None:
+    """The JAX package's default configuration: no solver keys."""
+    from stac_mjx_tpu_torch.bridge import bundle_path, load_bundle
+    from stac_mjx_tpu_torch.ops import solver
+    from stac_mjx_tpu_torch.stac import Stac
+
+    cfg = {"n_frames_per_clip": DEFAULT_CLIP}
+    model = {"N_ITERS": 1}
+    n_ik = DEFAULT_CLIPS * DEFAULT_CLIP
+    counting = _pg_iterations()
+    stac = Stac(bundle, cfg, model=model, device=device)
+    sc = stac._static_cfg
+    print(f"default: pose_mode {sc.pose_mode}, q_solver {stac.stac_core_obj.q_solver}, "
+          f"fk {stac.stac_core_obj.fk_impl}, "
+          f"{len(sc.indiv_parts)} parts ({sc.part_opt_mode}), {sc.root_opt_passes} root passes; "
+          f"fit {DEFAULT_FIT} frames x N_ITERS 1, ik {DEFAULT_CLIPS} clips x {DEFAULT_CLIP} frames")
+    t0 = time.perf_counter()
+    with counting() as fit_n:
+        fit, fit_s = _sync_time(lambda: stac.fit_offsets(kp[:DEFAULT_FIT]))
+        fit_n = dict(fit_n)
+    with counting() as ik_n:
+        ik, ik_s = _sync_time(lambda: stac.ik_only(kp[:n_ik], fit.offsets))
+        ik_n = dict(ik_n)
+    wall = time.perf_counter() - t0
+    _, _, ik_markers = stac.compute_full_outputs(ik.qpos)
+    resid = (_resid(fit.marker_sites, fit.kp_data, DEFAULT_FIT), _resid(ik_markers, kp[:n_ik].cpu().numpy(), n_ik))
+    for what, s_, n_ in (("fit", fit_s, fit_n), ("ik", ik_s, ik_n)):
+        print(f"default: {what} in {s_:.3f} s, {n_['solves']} PG solves, {n_['iters']} PG iterations "
+              f"(slowest lane), {1e3 * s_ / n_['iters']:.3f} ms per iteration")
+    print(f"default: fit/ik mean marker residual {resid[0] * 1e3:.4f}/{resid[1] * 1e3:.4f} mm; "
+          f"card wall {wall:.3f} s (budget {DEFAULT_BUDGET_S} s)")
+
+    # Kernels and time per PG iteration: 20 iterations of the ik's full-q
+    # solve shape (the clips on the lanes; tolerance 0, so all 20 run).
+    core = stac.stac_core_obj
+    q0 = stac.params.qpos0.expand(DEFAULT_CLIPS, -1).contiguous()
+    kp_l = kp[:DEFAULT_CLIPS]
+    qs = torch.ones(q0.shape[1], dtype=torch.bool, device=device)
+    kps = torch.ones(kp_l.shape[1], device=device)
+    pg = solver.ProjectedGradient(maxiter=20, tol=0.0)
+
+    def twenty():
+        return pg.run(lambda q: core.q_loss(q, stac.params, kp_l, qs, kps, q0), q0, stac._lb, stac._ub)
+
+    twenty()
+    _, t20 = _sync_time(twenty)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        twenty()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels) * 1e-3
+    print(f"default: PG over {DEFAULT_CLIPS} lanes from the rest pose: {1e3 * t20 / 20:.3f} ms per iteration "
+          f"untraced (20 iterations, graph capture included); traced: {len(kernels) / 20:.1f} kernels and "
+          f"{busy / 20:.3f} ms of device time per iteration")
+
+    # The same run on the CPU in float64.
+    with _one_cpu_thread():
+        st64 = Stac(bundle, cfg, model=model, device="cpu", dtype=torch.float64)
+        kp_c = kp[:n_ik].cpu()
+        t0 = time.perf_counter()
+        fit64 = st64.fit_offsets(kp_c[:DEFAULT_FIT])
+        ik64 = st64.ik_only(kp_c, fit64.offsets)
+        cpu_s = time.perf_counter() - t0
+        _, _, ik64_markers = st64.compute_full_outputs(ik64.qpos)
+    resid64 = (_resid(fit64.marker_sites, fit64.kp_data, DEFAULT_FIT), _resid(ik64_markers, kp_c.numpy(), n_ik))
+    print(f"default: cpu f64 fit/ik mean marker residual {resid64[0] * 1e3:.4f}/{resid64[1] * 1e3:.4f} mm "
+          f"in {cpu_s:.1f} s")
+
+    # pg-jaxopt on the synth model from the synth golden's keypoints.
+    golden = np.load(ROOT / "tests" / "goldens" / "synth.npz")
+    synth = Stac(load_bundle(bundle_path("synth_data")), {"q_solver": "pg-jaxopt", "n_frames_per_clip": 1},
+                 device=device)
+    sfit = synth.fit_offsets(golden["fit_kp"])
+    deltas = {k: float(np.abs(np.asarray(got) - golden[k]).max()) for k, got in
+              (("fit_qpos", sfit.qpos), ("fit_offsets", sfit.offsets), ("fit_markers", sfit.marker_sites))}
+    print("default: synth pg-jaxopt fit vs golden, max |delta|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in deltas.items()))
+    _check_all("default", {
+        "qpos finite, right shapes": bool(np.isfinite(fit.qpos).all() and np.isfinite(ik.qpos).all()
+                                          and fit.qpos.shape == (DEFAULT_FIT, 44) and ik.qpos.shape == (n_ik, 44)),
+        f"fit and ik residual < {FIT_RESID_MAX * 1e3} mm": max(resid) < FIT_RESID_MAX,
+        f"card and cpu f64 residuals within {DEFAULT_REL:.0%}":
+            all(abs(a - b) <= DEFAULT_REL * b for a, b in zip(resid, resid64)),
+        f"card wall within {DEFAULT_BUDGET_S} s": wall <= DEFAULT_BUDGET_S,
+        "synth fit finite": bool(np.isfinite(sfit.qpos).all()),
+    })
 
 
 def main() -> int:
@@ -338,17 +602,21 @@ def main() -> int:
     bundle = load_bundle()
     main_run = phase_main(spd, device, bundle)
     phase_reference(device, bundle)
+    parts = phase_parts(spd, device, bundle, main_run["kp"], main_run["true_off"])
+    phase_part_systems(spd, device, bundle, main_run["kp"])
     times = phase_kernel_times(spd, device)
+    phase_default(device, bundle, main_run["kp"])
 
-    # ms, plain_ms and library_ms: time per call on the stream, as since the
-    # first version of this line; the *device_ms keys: torch.profiler device time.
+    # launches: the main path's and the part passes' runs. ms, plain_ms and
+    # library_ms: time per call on the stream, as since the first version of
+    # this line; the *device_ms keys: torch.profiler device time.
     t = times[(37, 10_000)]
     print(json.dumps({"kernels": [{
         "name": "spd_chol_solve_f32",
         "route": "cuda",
         "source": "stac_mjx_tpu_torch/csrc/spd_chol.cu",
         "replaces": "stac_mjx_tpu/ops/spd.py:42",
-        "launches": main_run["launches"],
+        "launches": main_run["launches"] + parts["launches"],
         "max_abs_err": kern["max_abs_err"],
         "ms": t["kernel"]["stream"],
         "plain_ms": t["plain"]["stream"],

@@ -1,34 +1,38 @@
-"""Export the first-party fitting model as the PyTorch port's bundle.
+"""Export a fitting model as the PyTorch port's bundle.
 
 The port runs where jax and mujoco may be missing, so the model the JAX
 package compiles (MJCF + keypoint sites + rescale, then ``extract_model`` and
 ``_align_joint_dims``) is frozen here, on a host that has both, into
-``stac_mjx_tpu_torch/assets/firstparty_bundle.npz``: a few KB of numpy
-arrays, with no pickled objects. ``tests/test_torch_bridge.py`` checks that
-the checked-in file still equals a fresh export.
+``stac_mjx_tpu_torch/assets/<model>_bundle.npz``: a few KB of numpy arrays,
+with no pickled objects. ``tests/test_torch_bridge.py`` checks that the
+checked-in files still equal a fresh export.
 
-    python scripts/export_torch_bundle.py [OUT.npz]
+    python scripts/export_torch_bundle.py                 # firstparty
+    python scripts/export_torch_bundle.py --model synth_data --stac stac_synth_data
+    python scripts/export_torch_bundle.py --out OUT.npz   # another path
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
 import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
-OVERRIDES = ["model=firstparty", "stac=firstparty"]
 
 
-def bundle_arrays(repo_root: str | Path = REPO) -> dict[str, np.ndarray]:
+def bundle_arrays(
+    repo_root: str | Path = REPO, model: str = "firstparty", stac: str = "firstparty"
+) -> dict[str, np.ndarray]:
     """Every array the port needs, taken from the JAX package's own ``Stac``."""
     from stac_mjx_tpu.config import compose_config
     from stac_mjx_tpu.stac import Stac, _align_joint_dims
     from stac_mjx_tpu_torch.bridge import KINPARAMS_FIELDS, MODEL_SCALARS, TOPOLOGY_FIELDS
 
     root = Path(repo_root)
-    cfg = compose_config(root / "configs", overrides=OVERRIDES)
+    cfg = compose_config(root / "configs", overrides=[f"model={model}", f"stac={stac}"])
     kp_names = list(cfg.model.KEYPOINT_MODEL_PAIRS.keys())
     stac = Stac(root / cfg.model.MJCF_PATH, cfg, kp_names)
     fm, topo = stac._fit_model, stac.topo
@@ -61,10 +65,15 @@ def bundle_arrays(repo_root: str | Path = REPO) -> dict[str, np.ndarray]:
 
 
 def main(argv: list[str]) -> None:
-    from stac_mjx_tpu_torch.bridge import BUNDLE_PATH
+    from stac_mjx_tpu_torch.bridge import bundle_path
 
-    path = Path(argv[0]) if argv else BUNDLE_PATH
-    np.savez_compressed(path, **bundle_arrays())
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="firstparty", help="configs/model/<name>.yaml")
+    ap.add_argument("--stac", default="firstparty", help="configs/stac/<name>.yaml")
+    ap.add_argument("--out", type=Path, help="default: stac_mjx_tpu_torch/assets/<model>_bundle.npz")
+    args = ap.parse_args(argv)
+    path = args.out or bundle_path(args.model)
+    np.savez_compressed(path, **bundle_arrays(model=args.model, stac=args.stac))
     print(f"wrote {path} ({path.stat().st_size} bytes)")
 
 

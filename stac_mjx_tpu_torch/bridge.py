@@ -2,8 +2,8 @@
 
 The machine with the GPU has neither jax nor (perhaps) mujoco, so the model
 the JAX package compiles from MJCF on the host is frozen into a bundle of
-numpy arrays (``assets/firstparty_bundle.npz``, written by
-``scripts/export_torch_bundle.py``). The functions here turn such arrays,
+numpy arrays (``assets/firstparty_bundle.npz`` and ``assets/synth_data_bundle.npz``,
+written by ``scripts/export_torch_bundle.py``). The functions here turn such arrays,
 whether loaded from the bundle or taken from live JAX objects with
 ``np.asarray``, into the port's topology, parameters and fit model. The tests
 use the same functions to feed both packages identical parameters.
@@ -27,7 +27,15 @@ import torch
 
 from stac_mjx_tpu_torch.models.kinematics import KinParams, KinTopology
 
-BUNDLE_PATH = Path(__file__).resolve().parent / "assets" / "firstparty_bundle.npz"
+ASSETS = Path(__file__).resolve().parent / "assets"
+
+
+def bundle_path(model: str) -> Path:
+    """The checked-in bundle of a model config (``configs/model/<model>.yaml``)."""
+    return ASSETS / f"{model}_bundle.npz"
+
+
+BUNDLE_PATH = bundle_path("firstparty")
 
 TOPOLOGY_FIELDS = (
     "nq", "nv", "nbody", "nsite", "njnt",
@@ -70,7 +78,8 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 
 def load_bundle(path: str | Path = BUNDLE_PATH) -> dict[str, np.ndarray]:
-    """The bundle's arrays (no pickled objects: names are unicode arrays)."""
+    """The bundle's arrays (no pickled objects: names are unicode arrays):
+    firstparty by default, or any bundle file, e.g. ``bundle_path("synth_data")``."""
     with np.load(path, allow_pickle=False) as z:
         return {k: z[k] for k in z.files}
 

@@ -1,11 +1,13 @@
 """Forward kinematics over batched tensors (port of ``stac_mjx_tpu/models/kinematics.py``).
 
-Only the pointer-doubling FK (``make_fk_jump``) is ported: it is the one the
-lockstep Gauss-Newton path runs. Numerical semantics match MuJoCo's
-``mj_kinematics``: free joints set the frame from qpos (mju_normalize4),
-ball/hinge/slide compose about the joint anchor with displacements relative
-to ``qpos0``, and the final body quaternion is normalized before the site
-frames are computed.
+Both schedules are here: the level scan (``make_fk``, the ``fk_impl=scan``
+default) and pointer doubling (``make_fk_jump``). Numerical semantics match
+MuJoCo's ``mj_kinematics``: free joints set the frame from qpos
+(mju_normalize4), ball/hinge/slide compose about the joint anchor with
+displacements relative to ``qpos0``, and the final body quaternion is
+normalized before the site frames are computed. Every write is out of place,
+so ``torch.autograd`` differentiates through either FK (the
+projected-gradient solvers do).
 """
 
 from __future__ import annotations
@@ -28,8 +30,8 @@ JNT_NONE = 4  # padding
 class KinTopology:
     """Static description of the kinematic tree (host-side numpy).
 
-    Same constructor and fields as the JAX package's ``KinTopology``, minus
-    the per-level tables of its level-scan FK, which the port does not have.
+    Same constructor and fields as the JAX package's ``KinTopology``,
+    including the per-level tables of the level-scan FK.
     """
 
     def __init__(
@@ -67,6 +69,15 @@ class KinTopology:
         self.jnt_names = list(jnt_names)
         self.site_names = list(site_names)
 
+        # --- depth levels: bodies grouped so every parent is in a prior level.
+        depth = np.zeros(self.nbody, dtype=np.int32)
+        for b in range(1, self.nbody):
+            depth[b] = depth[self.body_parentid[b]] + 1
+        self.levels: list[np.ndarray] = [
+            np.nonzero(depth == d)[0].astype(np.int32)
+            for d in range(1, int(depth.max()) + 1 if self.nbody > 1 else 1)
+        ]
+
         # --- padded joint slots per body.
         self.max_slots = int(self.body_jntnum.max()) if self.njnt else 0
         ms = max(self.max_slots, 1)
@@ -79,6 +90,28 @@ class KinTopology:
                 self.slot_jid[b, s] = j
                 self.slot_type[b, s] = int(self.jnt_type[j])
                 self.slot_qadr[b, s] = int(self.jnt_qposadr[j])
+
+        # --- padded per-level tables (as in the JAX package; padding rows
+        # point at body 0). ``make_fk`` reads each level's real rows only.
+        self.n_levels = len(self.levels)
+        self.level_pad = max((len(lv) for lv in self.levels), default=1)
+        L, P, S = self.n_levels, self.level_pad, ms
+        self.lv_body = np.zeros((L, P), dtype=np.int32)
+        self.lv_parent = np.zeros((L, P), dtype=np.int32)
+        self.lv_jid = np.zeros((L, P, S), dtype=np.int32)  # clamped; NONE-typed
+        self.lv_jtype = np.full((L, P, S), JNT_NONE, dtype=np.int32)
+        self.lv_qadr = np.zeros((L, P, S), dtype=np.int32)
+        for li, lvl in enumerate(self.levels):
+            n = len(lvl)
+            self.lv_body[li, :n] = lvl
+            self.lv_parent[li, :n] = self.body_parentid[lvl]
+            self.lv_jid[li, :n] = np.maximum(self.slot_jid[lvl], 0)
+            self.lv_jtype[li, :n] = self.slot_type[lvl]
+            self.lv_qadr[li, :n] = self.slot_qadr[lvl]
+        # (level, lane, slot) -> joint id, valid slots only.
+        valid = (self.lv_jtype != JNT_NONE).ravel()
+        self.slot_flat_idx = np.nonzero(valid)[0].astype(np.int32)
+        self.slot_flat_jid = self.lv_jid.ravel()[self.slot_flat_idx]
 
         dof_per_type = {JNT_FREE: 6, JNT_BALL: 3, JNT_SLIDE: 1, JNT_HINGE: 1}
         self.jnt_dofnum = np.array(
@@ -131,6 +164,133 @@ class FKResult:
                 for f in dataclasses.fields(self)
             }
         )
+
+
+def make_fk(topo: KinTopology, device: torch.device | str):
+    """Level-scan FK: ``fk(params, qpos (F, nq)) -> FKResult``.
+
+    A Python loop over depth levels; each level is one batched op over
+    (frames x bodies in the level) per joint slot: the parent frame composed
+    with the body offset, then each slot's joint about its anchor. The JAX
+    version scans a padded level width and lets the padding lanes rewrite
+    body 0; here each level takes its real bodies only and writes them with
+    an out-of-place ``index_copy``, so autograd sees every write. The joint
+    types a (level, slot) holds are known on the host, so only those
+    branches are computed (the selects are disjoint, as in the JAX version).
+    """
+    nq = topo.nq
+    n7 = np.arange(7)
+
+    def idx(a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    def lane_mask(mask: np.ndarray):
+        """A (level, slot)'s lanes of one joint type: True or False when
+        uniform (the select is then skipped), else a (n, 1) tensor."""
+        if mask.all() or not mask.any():
+            return bool(mask.all())
+        return torch.as_tensor(mask, device=device)[:, None]
+
+    def sel(mask, a, b):
+        """a on the lanes of ``mask`` (from lane_mask), else b."""
+        if isinstance(mask, bool):
+            return a if mask else b
+        return torch.where(mask, a, b)
+
+    levels = []
+    jnt_row = np.zeros(max(topo.njnt, 1), np.int64)  # joint -> row of the stacked anchors
+    n_rows = 0
+    for li, lvl in enumerate(topo.levels):
+        n = len(lvl)
+        slots = []
+        for s in range(topo.max_slots):
+            jtype = topo.lv_jtype[li, :n, s]
+            present = {int(t) for t in jtype} - {JNT_NONE}
+            if not present:
+                continue
+            qadr = topo.lv_qadr[li, :n, s]
+            real = jtype != JNT_NONE
+            jnt_row[topo.lv_jid[li, :n, s][real]] = n_rows + np.nonzero(real)[0]
+            n_rows += n
+            slots.append(
+                dict(
+                    jid=idx(topo.lv_jid[li, :n, s]),
+                    q1=idx(np.minimum(qadr, nq - 1)),
+                    qv7=idx(np.minimum(qadr[:, None] + n7, nq - 1)),
+                    present=present,
+                    ball=lane_mask(jtype == JNT_BALL),
+                    free=lane_mask(jtype == JNT_FREE),
+                    slide=lane_mask(jtype == JNT_SLIDE),
+                    turn=lane_mask((jtype == JNT_HINGE) | (jtype == JNT_BALL)),
+                )
+            )
+        levels.append((idx(topo.lv_body[li, :n]), idx(topo.lv_parent[li, :n]), slots))
+    jnt_row_t = idx(jnt_row[: topo.njnt])
+    site_body = idx(topo.site_bodyid)
+
+    def fk(params: KinParams, qpos: torch.Tensor) -> FKResult:
+        F = qpos.shape[0]
+        frames = torch.zeros((F, topo.nbody, 7), dtype=qpos.dtype, device=qpos.device)
+        frames[..., 3] = 1.0  # xpos | xquat, the world body at the identity
+        jnt_pos_axis = torch.stack([params.jnt_pos, params.jnt_axis], dim=-2)  # (njnt, 2, 3)
+        anchor_axes = []  # per slot: (F, n, 2, 3) world anchor | world axis
+        for body, parent, slots in levels:
+            pframe = qm.take(frames, 1, parent)
+            ppos, pquat = pframe[..., :3], pframe[..., 3:]
+            pos = ppos + qm.quat_rotate(pquat, params.body_pos[body])
+            quat = qm.quat_mul(pquat, params.body_quat[body])
+            for sl in slots:
+                present = sl["present"]
+                pos_axis = jnt_pos_axis[sl["jid"]]  # (n, 2, 3)
+                jpos, axis = pos_axis[:, 0], pos_axis[:, 1]
+                if present & {JNT_BALL, JNT_FREE}:
+                    qv7 = qm.take(qpos, 1, sl["qv7"])  # (F, n, 7)
+                if present & {JNT_HINGE, JNT_SLIDE}:
+                    dq = qm.take(qpos, 1, sl["q1"]) - params.qpos0[sl["q1"]]
+                if present - {JNT_FREE}:
+                    # Anchor and axis in the world, from the frame before the joint.
+                    rotated = qm.quat_rotate(quat[..., None, :], pos_axis)
+                    anchor_axis = torch.cat([pos[..., None, :] + rotated[..., :1, :], rotated[..., 1:, :]], dim=-2)
+                else:
+                    anchor_axis = torch.stack([pos, axis.expand(F, -1, -1)], dim=-2)
+                new_pos, new_quat = pos, quat
+                if present & {JNT_HINGE, JNT_BALL}:
+                    # Hinge and ball lanes turn the frame about the anchor by
+                    # their local rotation.
+                    local = qm.axis_angle_quat(axis, dq) if JNT_HINGE in present else None
+                    if JNT_BALL in present:
+                        ball = qm.quat_normalize(qv7[..., :4])
+                        local = ball if local is None else sel(sl["ball"], ball, local)
+                    turned = qm.quat_mul(quat, local)
+                    turned_pos = anchor_axis[..., 0, :] - qm.quat_rotate(turned, jpos)
+                    new_pos = sel(sl["turn"], turned_pos, new_pos)
+                    new_quat = sel(sl["turn"], turned, new_quat)
+                if JNT_SLIDE in present:
+                    new_pos = sel(sl["slide"], pos + anchor_axis[..., 1, :] * dq[..., None], new_pos)
+                if JNT_FREE in present:
+                    # Free lanes take the frame from qpos; their anchor is the
+                    # qpos translation and their axis the raw local axis.
+                    free_pos = qv7[..., :3]
+                    new_pos = sel(sl["free"], free_pos, new_pos)
+                    new_quat = sel(sl["free"], qm.quat_normalize(qv7[..., 3:7]), new_quat)
+                    free_anchor_axis = torch.stack([free_pos, axis.expand(F, -1, -1)], dim=-2)
+                    free = sl["free"] if isinstance(sl["free"], bool) else sl["free"][..., None]
+                    anchor_axis = sel(free, free_anchor_axis, anchor_axis)
+                anchor_axes.append(anchor_axis)
+                pos, quat = new_pos, new_quat
+            quat = qm.quat_normalize(quat)
+            frames = frames.index_copy(1, body, torch.cat([pos, quat], dim=-1))
+
+        xpos, xquat = frames[..., :3], frames[..., 3:]
+        if anchor_axes:
+            per_joint = qm.take(torch.cat(anchor_axes, dim=1), 1, jnt_row_t)  # (F, njnt, 2, 3)
+            xanchor, xaxis = per_joint[..., 0, :], per_joint[..., 1, :]
+        else:
+            xanchor = xaxis = torch.zeros((F, 1, 3), dtype=qpos.dtype, device=qpos.device)
+        site_xpos = qm.take(xpos, 1, site_body) + qm.quat_rotate(qm.take(xquat, 1, site_body), params.site_pos)
+        return FKResult(xpos=xpos, xquat=xquat, site_xpos=site_xpos, xanchor=xanchor, xaxis=xaxis)
+
+    return fk
 
 
 def make_fk_jump(topo: KinTopology, device: torch.device | str):
@@ -275,7 +435,7 @@ def make_fk_jump(topo: KinTopology, device: torch.device | str):
         else:
             xanchor = xaxis = torch.zeros((F, 1, 3), dtype=dtype, device=qpos.device)
 
-        site_xpos = xpos[:, site_body] + qm.quat_rotate(xquat[:, site_body], params.site_pos)
+        site_xpos = qm.take(xpos, 1, site_body) + qm.quat_rotate(qm.take(xquat, 1, site_body), params.site_pos)
         return FKResult(xpos=xpos, xquat=xquat, site_xpos=site_xpos, xanchor=xanchor, xaxis=xaxis)
 
     return fk

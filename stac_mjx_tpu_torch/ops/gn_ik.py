@@ -9,10 +9,12 @@ dof i is ``R_body e_i`` about the joint anchor, so every Jacobian column is
 FK pass. Masked dofs get zero columns and a zero step; box bounds clip every
 non-quaternion coordinate after the retraction.
 
-Both flat-LM entries are here: ``solve_batch`` (the lockstep path, damping
-passed to the SPD kernel per frame) and ``solve`` (one frame; the fit's root
-solve; damping added into A before the solve). The linesearch GN of the JAX
-``GNIK.solve`` is part of the parity path and not ported yet.
+Three schedules are here: ``solve_batch`` (the flat LM over a frame batch,
+damping passed to the SPD kernel per frame: the lockstep path), and
+``solve``, the single-frame solve run over independent lanes, which is
+either the flat LM (fixed damping rule, damping added into A before the
+solve) or, with ``linesearch``, damped Gauss-Newton with a backtracking
+linesearch on the damping.
 """
 
 from __future__ import annotations
@@ -28,15 +30,17 @@ from stac_mjx_tpu_torch.models.kinematics import (
     FKResult,
     KinParams,
     KinTopology,
+    make_fk,
     make_fk_jump,
 )
 from stac_mjx_tpu_torch.ops import quat as qm
 from stac_mjx_tpu_torch.ops.solver import PGResult
-from stac_mjx_tpu_torch.ops.spd import spd_solve
+from stac_mjx_tpu_torch.ops.spd import spd_solve, spd_solve_plain
+from stac_mjx_tpu_torch.utils.lanes import while_lanes
 
 
 class GNIK:
-    """Per-topology flat Levenberg-Marquardt IK solver on one device."""
+    """Per-topology Gauss-Newton / Levenberg-Marquardt IK solver on one device."""
 
     def __init__(
         self,
@@ -44,25 +48,35 @@ class GNIK:
         site_idxs: np.ndarray,
         device: torch.device | str,
         maxiter: int = 12,
+        tol: float = 1e-8,
         damping_init: float = 1e-4,
         damping_inc: float = 10.0,
         damping_dec: float = 0.2,
+        max_bad_steps: int = 4,
+        fk_impl: str = "jump",
+        linesearch: bool = False,
         damping_rule: str = "nielsen",
     ):
         """damping_rule: "nielsen" (gain-ratio rule, Madsen-Nielsen-Tingleff
         alg. 3.16, with lambda clipped to [1e-7, 1e8] and rejects scaled by
         damping_inc) or "fixed" (x damping_inc on reject, x damping_dec on
-        accept). It drives ``solve_batch``; ``solve`` always uses "fixed"."""
+        accept). It drives ``solve_batch``; ``solve``'s flat LM always uses
+        "fixed". linesearch=True makes ``solve`` the linesearch GN: up to
+        max_bad_steps damping increases per iteration, stopping once the
+        accepted step's squared norm is <= tol."""
         if damping_rule not in ("nielsen", "fixed"):
             raise ValueError(f"unknown damping_rule {damping_rule!r}")
         self.device = torch.device(device)
         self.site_idxs = np.asarray(site_idxs)
         self.maxiter = maxiter
+        self.tol = tol
         self.damping_init = damping_init
         self.damping_inc = damping_inc
         self.damping_dec = damping_dec
+        self.max_bad_steps = max_bad_steps
+        self.linesearch = linesearch
         self.damping_rule = damping_rule
-        self.fk = make_fk_jump(topo, device)
+        self.fk = (make_fk_jump if fk_impl == "jump" else make_fk)(topo, device)
 
         nq, njnt = topo.nq, topo.njnt
         jnt_dofadr = np.concatenate([[0], np.cumsum(topo.jnt_dofnum)])[:-1]
@@ -311,19 +325,95 @@ class GNIK:
         lb: torch.Tensor,
         ub: torch.Tensor,
     ) -> PGResult:
-        """Flat LM on one frame (q0 (nq,), kp_data (3K,)): the fixed x10/x0.2
-        damping rule with lambda added into A before the solve."""
+        """The single-frame solve, on one frame (q0 (nq,), kp_data (3K,)) or
+        on independent lanes (q0 (B, nq), kp_data (B, 3K), qs_to_opt (nq,)
+        or (B, nq)), each lane as the JAX ``GNIK.solve`` under vmap.
+
+        Flat LM: the fixed x10/x0.2 damping rule with lambda added into A
+        before the solve, a fixed iteration count. With ``linesearch``: the
+        linesearch GN."""
+        if q0.ndim == 1:
+            res = self.solve(params, kp_data[None], qs_to_opt, kps_to_opt, q0[None], lb, ub)
+            return PGResult(*(a[0] for a in res))
         dtype = q0.dtype
-        res = self._flat_lm(
-            params,
-            kp_data[None],
-            kps_to_opt.to(dtype),
-            self._dof_mask(qs_to_opt, dtype),
-            q0[None],
-            lb,
-            ub,
-            self.maxiter,
-            nielsen=False,
-            lam_in_a=True,
+        args = (params, kp_data, kps_to_opt.to(dtype), self._dof_mask(qs_to_opt, dtype), q0, lb, ub)
+        if self.linesearch:
+            return self._linesearch_gn(*args)
+        return self._flat_lm(*args, self.maxiter, nielsen=False, lam_in_a=True)
+
+    def _linesearch_gn(self, params, kp_data, kmask, dof_mask, q0, lb, ub) -> PGResult:
+        """Damped GN with a backtracking linesearch on lambda, per lane.
+
+        Each iteration builds J'J and J'e once, then tries lambda, x10, x100
+        ... (up to max_bad_steps) until the loss drops; an accepted step
+        divides lambda by 1/damping_dec. A lane stops after maxiter
+        iterations or once its accepted step's squared norm is <= tol.
+        The JAX version factors with ``jax.scipy.linalg.cho_factor`` /
+        ``cho_solve`` (XLA, not a Pallas kernel), so the counterpart here is
+        ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``.
+        """
+        B = q0.shape[0]
+        dtype = q0.dtype
+        lb_c = torch.clamp(lb, -1e10, 1e10)
+        ub_c = torch.clamp(ub, -1e10, 1e10)
+        eye = torch.eye(self.nv, dtype=dtype, device=q0.device)
+        jmask = kmask[None, :, None] * dof_mask[:, None, :]
+
+        def project(q):
+            return torch.where(self._clip_mask, torch.clamp(q, lb_c, ub_c), q)
+
+        def err_of(fkres):
+            return (fkres.site_xpos[:, self._site_idxs].reshape(B, -1) - kp_data) * kmask
+
+        def loss_of(q):
+            e = err_of(self.fk(params, q))
+            return torch.sum(e * e, dim=-1)
+
+        def body(s, active):
+            k, q, lam, step2, f_x = s
+            fkres = self.fk(params, q)
+            e = err_of(fkres)
+            J = self.jacobian(fkres) * jmask
+            Jt = J.transpose(1, 2)
+            JtJ = torch.bmm(Jt, J)
+            g = torch.bmm(Jt, e[..., None])[..., 0]
+
+            def try_step(c, _active=None):
+                ls, lam_c, _, _, _ = c
+                delta = -spd_solve_plain(JtJ + lam_c[:, None, None] * eye, g) * dof_mask
+                q_new = project(self.retract(q, delta))
+                f_new = loss_of(q_new)
+                ok = f_new < f_x
+                return ls + 1, torch.where(ok, lam_c, lam_c * self.damping_inc), q_new, f_new, ok
+
+            def ls_cond(c):
+                ls, _, _, _, ok = c
+                return ~ok & (ls < self.max_bad_steps) & active
+
+            zero = torch.zeros(B, dtype=torch.int32, device=q0.device)
+            carry = try_step((zero, lam, q, f_x, torch.zeros(B, dtype=torch.bool, device=q0.device)))
+            _, lam_used, q_new, f_new, _ = while_lanes(ls_cond, try_step, carry)
+            accepted = f_new < f_x
+            q_next = torch.where(accepted[:, None], q_new, q)
+            f_next = torch.where(accepted, f_new, f_x)
+            lam_next = torch.where(accepted, lam_used * self.damping_dec, lam_used)
+            d = q_next - q
+            step2 = torch.where(accepted, torch.sum(d * d, dim=-1), torch.zeros_like(f_x))
+            return k + 1, q_next, lam_next, step2, f_next
+
+        def cond(s):
+            k, _, _, step2, _ = s
+            return (k < self.maxiter) & ((k == 0) | (step2 > self.tol))
+
+        q_start = project(q0)
+        init = (
+            torch.zeros(B, dtype=torch.int32, device=q0.device),
+            q_start,
+            torch.full((B,), self.damping_init, dtype=dtype, device=q0.device),
+            torch.full((B,), float("inf"), dtype=dtype, device=q0.device),
+            loss_of(q_start),
         )
-        return PGResult(*(a[0] for a in res))
+        k, q, lam, step2, f_x = while_lanes(cond, body, init)
+        return PGResult(
+            params=q, error=torch.sqrt(step2), value=f_x, iters=k, stepsize=1.0 / (1.0 + lam)
+        )

@@ -17,19 +17,41 @@ _MJ_MINVAL = 1e-15
 _TOL = 1e-10
 
 
+def take(x: torch.Tensor, dim: int, index: torch.Tensor) -> torch.Tensor:
+    """``x`` indexed along ``dim`` by an integer tensor of any shape, as
+    ``index_select`` (whose gradient is one ``index_add``; advanced indexing's
+    is an accumulating ``index_put``, several kernels on a GPU)."""
+    dim = dim % x.ndim
+    out = x.index_select(dim, index.reshape(-1))
+    return out.reshape(x.shape[:dim] + index.shape + x.shape[dim + 1 :])
+
+
+# Hamilton product as out[r] = sum_t sign[r, t] * q1[t] * q2[src[r, t]], the
+# terms in the order of w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2 etc.
+_MUL_SRC = ((0, 1, 2, 3), (1, 0, 3, 2), (2, 3, 0, 1), (3, 2, 1, 0))
+_MUL_SIGN = ((1, -1, -1, -1), (1, 1, 1, -1), (1, -1, 1, 1), (1, 1, -1, 1))
+_CONSTANTS: dict = {}
+
+
+def _constants(like: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(product source indices, product signs, unit quaternion) on like's device and dtype."""
+    key = (like.device, like.dtype)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = (
+            torch.tensor(_MUL_SRC, device=like.device),
+            torch.tensor(_MUL_SIGN, dtype=like.dtype, device=like.device),
+            torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=like.dtype, device=like.device),
+        )
+    return _CONSTANTS[key]
+
+
 def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
-    """Hamilton product q1 * q2."""
-    w1, x1, y1, z1 = q1.unbind(-1)
-    w2, x2, y2, z2 = q2.unbind(-1)
-    return torch.stack(
-        [
-            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
-            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
-            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
-            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
-        ],
-        dim=-1,
-    )
+    """Hamilton product q1 * q2, as one gathered 4x4 product per pair (a few
+    batched ops, forward and backward, instead of 28 scalar ones)."""
+    src, sign, _ = _constants(q2)
+    p = q1[..., None, :] * sign * take(q2, -1, src)
+    # Summed left to right: the roundings of the scalar formula.
+    return p[..., 0] + p[..., 1] + p[..., 2] + p[..., 3]
 
 
 def quat_conj(q: torch.Tensor) -> torch.Tensor:
@@ -46,7 +68,8 @@ def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vector(s) v by quaternion(s) q: v + 2 (w (u x v) + u x (u x v))."""
     w = q[..., 0:1]
     u = q[..., 1:4]
-    u, v = torch.broadcast_tensors(u, v)
+    if u.ndim != v.ndim:  # linalg.cross broadcasts only between equal ranks
+        u, v = torch.broadcast_tensors(u, v)
     uv = torch.linalg.cross(u, v, dim=-1)
     uuv = torch.linalg.cross(u, uv, dim=-1)
     return v + 2.0 * (w * uv + uuv)
@@ -61,18 +84,15 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     """Normalize with mju_normalize4 semantics: a norm below mjMINVAL gives [1, 0, 0, 0]."""
     norm2 = torch.sum(q * q, dim=-1, keepdim=True)
     bad = norm2 < _MJ_MINVAL * _MJ_MINVAL
-    safe_norm = torch.sqrt(torch.where(bad, torch.ones_like(norm2), norm2))
-    unit = torch.zeros_like(q)
-    unit[..., 0] = 1.0
-    return torch.where(bad, unit, q / safe_norm)
+    safe_norm = torch.sqrt(norm2.masked_fill(bad, 1.0))
+    return torch.where(bad, _constants(q)[2], q / safe_norm)
 
 
 def axis_angle_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Quaternion from unit axis (..., 3) and angle (...,) (mju_axisAngle2Quat)."""
-    half = 0.5 * angle
-    s = torch.sin(half)
-    axis, s = torch.broadcast_tensors(axis, s[..., None])
-    return torch.cat([torch.cos(half)[..., None].expand(s.shape[:-1] + (1,)), axis * s], dim=-1)
+    half = (0.5 * angle)[..., None]
+    vec = axis * torch.sin(half)
+    return torch.cat([torch.cos(half).expand(vec.shape[:-1] + (1,)), vec], dim=-1)
 
 
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,14 @@
-"""STAC drivers over batched tensors (port of ``stac_mjx_tpu/pipeline.py``, lockstep mode).
+"""STAC drivers over batched tensors (port of ``stac_mjx_tpu/pipeline.py``).
 
-Lockstep scheduling solves every frame of a pass at once through the flat
-LM: ``fit_offsets_program`` (root solve, N x (pose pass, m-phase), final
-pose pass) and ``ik_only_program`` (per-clip root solves, then one flat
-batch over every frame of every clip; optionally hierarchical: strided cold
-solves, nlerp seeds, a short warm pass over all frames). The sequential
-(parity) mode and the per-part refinement passes are not ported yet.
+Both pose modes of the JAX package: ``sequential`` (its default and the
+reference's parity path: frame t starts from frame t-1's solution, each frame
+a full-q solve then one solve per body part) and ``lockstep`` (every frame of
+a pass solved at once; part passes batched with parts on the batch axis, or
+chained). ``fit_offsets_program`` runs the root solve, N x (pose pass,
+m-phase) and a final pose pass; ``ik_only_program`` runs each clip's root
+solve, then its pose pass (lockstep: one flat batch over every frame of
+every clip, optionally hierarchical; sequential: the per-clip chains side by
+side, the clips riding the lanes).
 """
 
 from __future__ import annotations
@@ -20,12 +23,15 @@ from stac_mjx_tpu_torch.models.kinematics import JNT_BALL, JNT_FREE, KinParams
 from stac_mjx_tpu_torch.ops.stac_core import StacCore, make_qs
 from stac_mjx_tpu_torch.utils import prng
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, modules still open)"
+# Batched part-pass item cap: above P * F items the lockstep part passes fall
+# back to the sequential part chain (see pose_optimization).
+_PART_BATCH_MAX_ITEMS = 32768
 
 
 @dataclasses.dataclass(frozen=True)
 class StacConfigStatic:
-    """Pipeline configuration; fields as in the JAX package's ``StacConfigStatic``."""
+    """Pipeline configuration; fields and defaults as in the JAX package's
+    ``StacConfigStatic`` (``Stac`` resolves the automatic values)."""
 
     n_iters: int
     n_sample_frames: int
@@ -33,20 +39,14 @@ class StacConfigStatic:
     root_kp_idx: int  # -1 => no root optimization
     root_dims: int  # 7 (free) or 4 (slide)
     do_root_opt: bool
-    indiv_parts: tuple  # per-part qpos masks; must be empty here
+    indiv_parts: tuple  # per-part qpos masks (np.ndarray bool (nq,))
     trunk_kps: Any  # np.ndarray bool (K,)
-    pose_mode: str = "lockstep"
-    root_opt_passes: int = 1
+    pose_mode: str = "sequential"  # "sequential" (parity) | "lockstep"
+    root_opt_passes: int = 2
+    part_opt_mode: str = "sequential"  # lockstep part passes: "batched" | "sequential"
     hier_stride: int = 0
     hier_fine_iters: int = 0
     fit_warm_iters: int = 0
-
-
-def _check(cfg: StacConfigStatic) -> None:
-    if cfg.pose_mode != "lockstep":
-        raise NotImplementedError(f"pose_mode={cfg.pose_mode!r} {_NOT_PORTED}")
-    if cfg.indiv_parts:
-        raise NotImplementedError(f"per-part refinement (skip_part_opt=false) {_NOT_PORTED}")
 
 
 def _root_masks(cfg, q0):
@@ -57,32 +57,39 @@ def _root_masks(cfg, q0):
     return qs_to_opt, torch.as_tensor(kps, device=q0.device).to(q0.dtype)
 
 
+def _part_masks(cfg, device) -> list[torch.Tensor]:
+    return [torch.as_tensor(np.asarray(p, bool), device=device) for p in cfg.indiv_parts]
+
+
 # ---------------------------------------------------------------- root phase
 
 
-def root_optimization(core: StacCore, cfg, params, kp_frame, q0, lb, ub) -> torch.Tensor:
-    """Root-only solves on one frame (kp_frame (3K,), q0 (nq,)), each pass
+def _root_passes(solve, cfg, params, kp_frames, q0, lb, ub) -> torch.Tensor:
+    """cfg.root_opt_passes root-only solves of (C, ·) lanes, each pass
     seeded with the root keypoint's xyz, against the trunk keypoints only."""
-    root_xyz = kp_frame[3 * cfg.root_kp_idx : 3 * cfg.root_kp_idx + 3]
-    qs_to_opt, kps_to_opt = _root_masks(cfg, q0)
-    q = q0
-    for _ in range(cfg.root_opt_passes):
-        q = torch.cat([root_xyz, q[3:]])
-        res = core.q_opt(params, kp_frame, qs_to_opt, kps_to_opt, q, lb, ub)
-        q = make_qs(q, qs_to_opt, res.params)
-    return q
-
-
-def root_optimization_batch(core: StacCore, cfg, params, kp_frames, q0, lb, ub) -> torch.Tensor:
-    """root_optimization for C clips at once: kp_frames (C, 3K), q0 (C, nq)."""
     root_xyz = kp_frames[:, 3 * cfg.root_kp_idx : 3 * cfg.root_kp_idx + 3]
     qs_to_opt, kps_to_opt = _root_masks(cfg, q0)
     q = q0
     for _ in range(cfg.root_opt_passes):
         q = torch.cat([root_xyz, q[:, 3:]], dim=1)
-        res = core.q_opt_batch(params, kp_frames, qs_to_opt, kps_to_opt, q, lb, ub)
+        res = solve(params, kp_frames, qs_to_opt, kps_to_opt, q, lb, ub)
         q = make_qs(q, qs_to_opt, res.params)
     return q
+
+
+def root_optimization(core: StacCore, cfg, params, kp_frame, q0, lb, ub) -> torch.Tensor:
+    """Root solves with the single-frame solver (``q_opt``): on one frame
+    (kp_frame (3K,), q0 (nq,)), or on C clips' first frames at once
+    (kp_frame (C, 3K), q0 (C, nq)) as the JAX per-clip vmap does."""
+    if q0.ndim == 2:
+        return _root_passes(core.q_opt, cfg, params, kp_frame, q0, lb, ub)
+    return _root_passes(core.q_opt, cfg, params, kp_frame[None], q0[None], lb, ub)[0]
+
+
+def root_optimization_batch(core: StacCore, cfg, params, kp_frames, q0, lb, ub) -> torch.Tensor:
+    """root_optimization for C clips through the batched solver
+    (``q_opt_batch``, the lockstep ik): kp_frames (C, 3K), q0 (C, nq)."""
+    return _root_passes(core.q_opt_batch, cfg, params, kp_frames, q0, lb, ub)
 
 
 # ---------------------------------------------------------------- pose phase
@@ -131,6 +138,59 @@ def interp_seeds(topo, q_coarse: torch.Tensor, stride: int, n_frames: int) -> to
     return seed
 
 
+def _solve_frame(core, cfg, params, q0, kp_t, lb, ub, kps_to_opt, qs_all):
+    """One frame of C clips (q0 (C, nq), kp_t (C, 3K)): the full-q solve,
+    then one solve per part in part order, each re-masked through make_qs.
+    Returns (q, the last solve's solver error)."""
+    res = core.q_opt(params, kp_t, qs_all, kps_to_opt, q0, lb, ub)
+    q = res.params
+    err = res.error
+    for part_mask in _part_masks(cfg, q0.device):
+        res = core.q_opt(params, kp_t, part_mask, kps_to_opt, q, lb, ub)
+        q = make_qs(q, part_mask, res.params)
+        err = res.error
+    return q, err
+
+
+def _pose_sequential(core, cfg, params, kp_clips, q_init, lb, ub):
+    """The sequential pose pass of C clips side by side: kp_clips
+    (C, F, 3K), q_init (C, nq). Frame t of each clip starts from that
+    clip's frame t-1. Returns (q_last (C, nq), qposes (C, F, nq))."""
+    kps_to_opt = torch.ones(kp_clips.shape[-1], dtype=kp_clips.dtype, device=kp_clips.device)
+    qs_all = torch.ones(q_init.shape[-1], dtype=torch.bool, device=kp_clips.device)
+    q, qposes = q_init, []
+    for t in range(kp_clips.shape[1]):
+        q, _ = _solve_frame(core, cfg, params, q, kp_clips[:, t], lb, ub, kps_to_opt, qs_all)
+        qposes.append(q)
+    return q, torch.stack(qposes, dim=1)
+
+
+def _part_passes(core, cfg, params, kp_data, qposes, kps_to_opt, lb, ub) -> torch.Tensor:
+    """The lockstep part passes over (F, ·) frames, at the full budget.
+
+    Batched (``part_opt_mode="batched"`` and P * F <= _PART_BATCH_MAX_ITEMS):
+    one solve of P * F items, parts on the batch axis with a mask per item,
+    each part's masked dims then written back in part order. Otherwise the
+    chain: part p's solve starts from the result of part p-1.
+    """
+    F = kp_data.shape[0]
+    masks = _part_masks(cfg, kp_data.device)
+    P = len(masks)
+    if cfg.part_opt_mode == "batched" and P * F <= _PART_BATCH_MAX_ITEMS:
+        qs_pf = torch.repeat_interleave(torch.stack(masks), F, dim=0)
+        res = core.q_opt_batch(
+            params, kp_data.repeat(P, 1), qs_pf, kps_to_opt, qposes.repeat(P, 1), lb, ub
+        )
+        sols = res.params.reshape(P, F, -1)
+        for i, part_mask in enumerate(masks):
+            qposes = make_qs(qposes, part_mask, sols[i])
+        return qposes
+    for part_mask in masks:
+        res = core.q_opt_batch(params, kp_data, part_mask, kps_to_opt, qposes, lb, ub)
+        qposes = make_qs(qposes, part_mask, res.params)
+    return qposes
+
+
 def pose_optimization(
     core: StacCore,
     cfg: StacConfigStatic,
@@ -142,33 +202,45 @@ def pose_optimization(
     maxiter: int | None = None,
     root_reseed: bool = True,
 ):
-    """Lockstep pose pass: every frame solved at once from ``q_init``.
+    """Pose solves over a clip kp_data (F, 3K).
 
-    q_init is (nq,), broadcast to every frame, or (F, nq). With root_reseed,
-    each frame's root xyz starts at its own root keypoint.
+    sequential: frame by frame, frame t starting from frame t-1 (q_init
+    (nq,) starts frame 0). lockstep: every frame at once from q_init (nq,)
+    broadcast or (F, nq); with root_reseed each frame's root xyz starts at
+    its own root keypoint; ``maxiter`` overrides the full-q pass's budget
+    (gn-lm), never the part passes'.
 
     Returns (q_last, qposes (F, nq), xpos, xquat, marker_sites, errors (F,)),
     errors being the per-frame mean marker distance in meters. q_last is the
     LAST frame's pose, the carry the fit hands to its next pass.
     """
-    _check(cfg)
     F = kp_data.shape[0]
     nq = q_init.shape[-1]
-    q0b = q_init if q_init.ndim == 2 else q_init.expand(F, nq)
-    if cfg.root_kp_idx >= 0 and cfg.do_root_opt and root_reseed:
-        root_xyz = kp_data[:, 3 * cfg.root_kp_idx : 3 * cfg.root_kp_idx + 3]
-        q0b = torch.cat([root_xyz, q0b[:, 3:]], dim=1)
-    qs_all = torch.ones(nq, dtype=torch.bool, device=kp_data.device)
-    kps_to_opt = torch.ones(kp_data.shape[1], dtype=kp_data.dtype, device=kp_data.device)
-    res = core.q_opt_batch(params, kp_data, qs_all, kps_to_opt, q0b, lb, ub, maxiter=maxiter)
-    qposes = res.params
-    q_last = qposes[-1]
+    if cfg.pose_mode == "lockstep":
+        q0b = q_init if q_init.ndim == 2 else q_init.expand(F, nq)
+        if cfg.root_kp_idx >= 0 and cfg.do_root_opt and root_reseed:
+            root_xyz = kp_data[:, 3 * cfg.root_kp_idx : 3 * cfg.root_kp_idx + 3]
+            q0b = torch.cat([root_xyz, q0b[:, 3:]], dim=1)
+        qs_all = torch.ones(nq, dtype=torch.bool, device=kp_data.device)
+        kps_to_opt = torch.ones(kp_data.shape[1], dtype=kp_data.dtype, device=kp_data.device)
+        res = core.q_opt_batch(params, kp_data, qs_all, kps_to_opt, q0b, lb, ub, maxiter=maxiter)
+        qposes = res.params
+        if cfg.indiv_parts:
+            qposes = _part_passes(core, cfg, params, kp_data, qposes, kps_to_opt, lb, ub)
+        q_last = qposes[-1]
+    else:
+        q_last, qposes = _pose_sequential(core, cfg, params, kp_data[None], q_init[None], lb, ub)
+        q_last, qposes = q_last[0], qposes[0]
+    return (q_last, qposes) + _frame_outputs(core, params, kp_data, qposes)
 
+
+def _frame_outputs(core, params, kp_data, qposes):
+    """(xpos, xquat, marker_sites, errors) of poses (F, nq) against kp_data (F, 3K)."""
     fk_res = core.fk(params, qposes)
     marker_sites = fk_res.site_xpos[:, core.site_idxs_t]
-    kp_xyz = kp_data.reshape(F, -1, 3)
+    kp_xyz = kp_data.reshape(kp_data.shape[0], -1, 3)
     errors = torch.linalg.norm(kp_xyz - marker_sites, dim=-1).mean(dim=-1)
-    return q_last, qposes, fk_res.xpos, fk_res.xquat, marker_sites, errors
+    return fk_res.xpos, fk_res.xquat, marker_sites, errors
 
 
 # -------------------------------------------------------------- offset phase
@@ -218,11 +290,13 @@ def fit_offsets_program(
     """The alternating calibration: root solve on frame 0, then n_iters x
     (pose pass, m-phase), then a final pose pass.
 
-    Without fit_warm_iters, pass k+1 starts every frame from the LAST
-    frame's pose of pass k (root xyz re-anchored on each frame's keypoint),
-    as the JAX program does.
+    Each pass starts from the LAST frame's pose of the pass before (the
+    root solve's pose for the first): the sequential chain's frame 0 starts
+    there, lockstep broadcasts it to every frame (root xyz re-anchored on
+    each frame's keypoint). With fit_warm_iters (lockstep), passes after the
+    first start every frame from its own previous solution instead, at that
+    budget. As the JAX program does.
     """
-    _check(cfg)
     site_idxs = core.site_idxs_t
     q = params.qpos0
     offsets = params.site_pos[site_idxs]
@@ -230,6 +304,7 @@ def fit_offsets_program(
     if cfg.do_root_opt and cfg.root_kp_idx >= 0:
         q = root_optimization(core, cfg, params, kp_data[0], q, lb, ub)
 
+    lockstep = cfg.pose_mode == "lockstep"
     warm_iters = cfg.fit_warm_iters if cfg.fit_warm_iters > 0 else None
     frame_errors, m_errors = [], []
     q_warm = None
@@ -239,7 +314,7 @@ def fit_offsets_program(
         q, qposes, _, _, _, errors = pose_optimization(
             core, cfg, params, kp_data, q_init, lb, ub, maxiter=mi
         )
-        q_warm = qposes if warm_iters is not None else None
+        q_warm = qposes if (lockstep and warm_iters is not None) else None
         params, offsets, m_err = offset_optimization(
             core, cfg, params, kp_data, offsets, qposes, is_regularized
         )
@@ -276,27 +351,44 @@ def ik_only_program(
     ub: torch.Tensor,
     return_full: bool = True,
 ):
-    """IK with frozen offsets over clips batched_kp (C, Fc, 3K), as one flat batch.
+    """IK with frozen offsets over clips batched_kp (C, Fc, 3K).
 
-    Per-clip root solves batch across clips; every frame then starts from
-    its clip's root solution. Hierarchical (hier_stride > 1): every s-th
-    frame is solved cold at the full budget with its root xyz re-anchored on
-    the keypoint, the other frames are seeded by ``interp_seeds``, and all
+    sequential: each clip's root solve (single-frame solver) and its
+    frame-by-frame chain, the C clips side by side on the lanes (the JAX
+    per-clip vmap). lockstep: the per-clip root solves batch across clips
+    and every frame then starts from its clip's root solution, as one flat
+    batch. Hierarchical (lockstep gn-lm, hier_stride > 1): every s-th frame
+    is solved cold at the full budget with its root xyz re-anchored on the
+    keypoint, the other frames are seeded by ``interp_seeds``, and all
     frames are refined in hier_fine_iters (6 if 0) keeping the interpolated
     root translation. Returns (qpos, errors) or, with return_full,
     (qpos, xpos, xquat, marker_sites, errors), each shaped (C, Fc, ...).
     """
-    _check(cfg)
     params = params.set_site_pos(offsets, core.site_idxs_t)
     C, Fc = batched_kp.shape[0], batched_kp.shape[1]
     nq = params.qpos0.shape[-1]
     q_start = params.qpos0.expand(C, nq)
+
+    def shape(a):
+        return a.reshape(C, Fc, *a.shape[1:])
+
+    if cfg.pose_mode != "lockstep":
+        q = q_start
+        if cfg.do_root_opt and cfg.root_kp_idx >= 0:
+            q = root_optimization(core, cfg, params, batched_kp[:, 0], q, lb, ub)
+        _, qposes = _pose_sequential(core, cfg, params, batched_kp, q, lb, ub)
+        qposes = qposes.reshape(C * Fc, nq)
+        outs = _frame_outputs(core, params, batched_kp.reshape(C * Fc, -1), qposes)
+        if not return_full:
+            return shape(qposes), shape(outs[-1])
+        return (shape(qposes),) + tuple(shape(a) for a in outs)
+
     if cfg.do_root_opt and cfg.root_kp_idx >= 0:
         roots = root_optimization_batch(core, cfg, params, batched_kp[:, 0], q_start, lb, ub)
     else:
         roots = q_start
     kp_flat = batched_kp.reshape(C * Fc, -1)
-    use_hier = cfg.hier_stride > 1
+    use_hier = cfg.hier_stride > 1 and core.q_solver == "gn-lm"
     fine_iters = None
     if use_hier:
         s_h = int(cfg.hier_stride)
@@ -324,10 +416,6 @@ def ik_only_program(
         core, cfg, params, kp_flat, q0_flat, lb, ub, maxiter=fine_iters,
         root_reseed=not use_hier,
     )
-
-    def shape(a):
-        return a.reshape(C, Fc, *a.shape[1:])
-
     if not return_full:
         return shape(qposes), shape(errors)
     return shape(qposes), shape(xposes), shape(xquats), shape(marker_sites), shape(errors)

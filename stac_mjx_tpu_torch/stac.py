@@ -1,4 +1,5 @@
-"""Stac orchestrator (port of ``stac_mjx_tpu/stac.py``: lockstep fit and ik).
+"""Stac orchestrator (port of ``stac_mjx_tpu/stac.py``: fit and ik in every
+pose mode, q_solver, fk_impl and part schedule of the JAX package).
 
 Built from a model bundle (``bridge.load_bundle()``) plus a stac config with
 the keys of ``configs/stac/*.yaml`` given as a mapping; model scalars
@@ -87,6 +88,7 @@ class Stac:
             self.topo,
             self._body_site_idxs,
             self.device,
+            tol=float(self.model_cfg["FTOL"]),
             n_iter_q=int(self.model_cfg["N_ITER_Q"]),
             q_solver=get("q_solver", "pg") or "pg",
             fk_impl=get("fk_impl", "scan") or "scan",
@@ -101,6 +103,14 @@ class Stac:
         root_passes = int(get("root_opt_passes", 0) or 0)
         if root_passes <= 0:
             root_passes = 1 if pose_mode == "lockstep" else 2
+        # Part schedule: "auto" batches the parts in one sweep only where the
+        # natively batched solver runs (lockstep gn-lm); else the chain.
+        part_mode = get("part_opt_mode", "auto") or "auto"
+        if part_mode == "auto":
+            lockstep_lm = pose_mode == "lockstep" and get("q_solver", "pg") == "gn-lm"
+            part_mode = "batched" if lockstep_lm else "sequential"
+        if self._indiv_parts and not skip_parts:
+            print(f"part optimization: {len(self._indiv_parts)} parts, '{part_mode}' schedule")
         self._static_cfg = pipeline.StacConfigStatic(
             n_iters=int(self.model_cfg["N_ITERS"]),
             n_sample_frames=int(self.model_cfg["N_SAMPLE_FRAMES"]),
@@ -112,11 +122,11 @@ class Stac:
             trunk_kps=self._trunk_kps,
             pose_mode=pose_mode,
             root_opt_passes=root_passes,
+            part_opt_mode=part_mode,
             hier_stride=int(get("ik_hier_stride", 0) or 0),
             hier_fine_iters=int(get("ik_hier_fine_iters", 0) or 0),
             fit_warm_iters=int(get("fit_warm_iters", 0) or 0),
         )
-        pipeline._check(self._static_cfg)
 
     def _to_device(self, kp) -> torch.Tensor:
         """Keypoints travel as float32 (the JAX package's f32 wire), then take the compute dtype."""

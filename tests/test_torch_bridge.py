@@ -22,14 +22,15 @@ from stac_mjx_tpu_torch.stac import Stac
 from stac_mjx_tpu_torch.utils import prng
 
 
-def test_checked_in_bundle_matches_fresh_export():
-    """The bundle is regenerable: no silent drift from the JAX package's
+@pytest.mark.parametrize("model,stac", [("firstparty", "firstparty"), ("synth_data", "stac_synth_data")])
+def test_checked_in_bundle_matches_fresh_export(model, stac):
+    """The bundles are regenerable: no silent drift from the JAX package's
     model build (run scripts/export_torch_bundle.py after model edits)."""
     spec = importlib.util.spec_from_file_location("export_torch_bundle", REPO / "scripts" / "export_torch_bundle.py")
     exporter = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(exporter)
-    fresh = exporter.bundle_arrays(REPO)
-    checked_in = bridge.load_bundle()
+    fresh = exporter.bundle_arrays(REPO, model=model, stac=stac)
+    checked_in = bridge.load_bundle(bridge.bundle_path(model))
     assert sorted(fresh) == sorted(checked_in)
     for k, v in fresh.items():
         assert checked_in[k].dtype == v.dtype, k
@@ -84,6 +85,11 @@ st = Stac(b, dict(pose_mode="lockstep", q_solver="gn-lm", skip_part_opt=True, fk
           device="cpu")
 out = st.ik_only(kp, st._offsets)
 assert out.qpos.shape == (32, 44) and np.isfinite(out.qpos).all()
+from stac_mjx_tpu_torch.bridge import bundle_path
+d = Stac(b, {"n_frames_per_clip": 1}, model={"N_ITERS": 1, "N_ITER_Q": 3}, device="cpu")  # the defaults
+assert np.isfinite(d.fit_offsets(kp[:1]).qpos).all()
+s = Stac(load_bundle(bundle_path("synth_data")), {"n_frames_per_clip": 1}, device="cpu")
+assert np.isfinite(s.fit_offsets(kp[:1, :3]).qpos).all()
 print("NO_HOST_DEPS_OK")
 """
 

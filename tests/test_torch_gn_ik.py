@@ -15,6 +15,7 @@ from stac_mjx_tpu.models.builder import extract_model
 from stac_mjx_tpu.ops.gn_ik import GNIK as JaxGNIK
 from stac_mjx_tpu_torch.ops.gn_ik import GNIK
 from stac_mjx_tpu_torch.ops.stac_core import StacCore
+from stac_mjx_tpu_torch.stac import Stac
 
 F = 16
 
@@ -153,13 +154,21 @@ def test_solve_batch_final_loss_f32(problem):
 
 
 def test_unported_options_raise():
+    """wire_dtype=float16 and gn_stall_iters > 0 stay unported; the defaults
+    are the JAX package's (pg, scan FK, sequential, two root passes); the
+    flat LM's iteration count follows the gn_iters auto rule."""
     b = bridge.load_bundle()
     fm = bridge.fit_model_from_arrays(b, "cpu")
-    for kw in ({"q_solver": "pg"}, {"q_solver": "pg-jaxopt"}, {"q_solver": "gn"},
-               {"fk_impl": "scan"}, {"gn_stall_iters": 3}):
-        with pytest.raises(NotImplementedError):
-            StacCore(fm.topo, fm.site_idxs, "cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn-lm", gn_stall_iters=3)
+    with pytest.raises(NotImplementedError):
+        Stac(b, {"wire_dtype": "float16"}, device="cpu")
     core = StacCore(fm.topo, fm.site_idxs, "cpu")
-    assert core.gnik.maxiter == 14
-    assert StacCore(fm.topo, fm.site_idxs, "cpu", gn_damping_rule="fixed").gnik.maxiter == 16
-    assert StacCore(fm.topo, fm.site_idxs, "cpu", n_iter_q=5).gnik.maxiter == 5
+    assert (core.q_solver, core.fk_impl, core.gnik) == ("pg", "scan", None)
+    sc = Stac(b, {}, device="cpu")._static_cfg
+    assert (sc.pose_mode, sc.root_opt_passes, sc.part_opt_mode) == ("sequential", 2, "sequential")
+    lm = StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn-lm")
+    assert lm.gnik.maxiter == 14 and not lm.gnik.linesearch
+    assert StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn-lm", gn_damping_rule="fixed").gnik.maxiter == 16
+    assert StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn-lm", n_iter_q=5).gnik.maxiter == 5
+    assert StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn").gnik.maxiter == 16
