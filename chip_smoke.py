@@ -39,6 +39,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    ...})``: the time and kernel launches per PG iteration, residuals, and
    the same run on the CPU in float64; then pg-jaxopt on the synth model
    from the synth golden's keypoints, against the golden;
+10. driver: ``main.run_stac`` on the card, the main path's configuration
+   with the continuous crossfade, qvel inference and the full payload: the
+   config from the bundle's recorded model config (``config_from_dict``, no
+   YAML files), the main phase's recording written as a DANNCE .mat and read
+   by ``load_data``, the fit on 250 frames, its artifact read back by the ik
+   (the resume contract; h5 files where h5py and PyYAML import, else an
+   in-memory store in their place), continuous ik on 10,000 frames with
+   qvel. Launches must be exactly 112 and 34; residuals and offset error
+   under the bounds and within 2% of the main phase's; the card's float32
+   qvel against the CPU's float64 on the artifact's qpos; wall times of the
+   driver's steps;
 
 Cuts, all of depth (the model keeps its full width, nq 44, nv 37, and the
 solver settings, N_ITER_Q 400 and FTOL 1e-4, stay): the default phase fits
@@ -56,6 +67,8 @@ The second-to-last line is {"kernels": [...]} and the last line
 from __future__ import annotations
 
 import contextlib
+import copy
+import importlib
 import json
 import re
 import subprocess
@@ -104,6 +117,22 @@ PARTS_LAUNCHES = (112 + 7 * 14, 34 + 6 * 14)
 DEFAULT_FIT, DEFAULT_CLIPS, DEFAULT_CLIP = 5, 40, 5
 DEFAULT_REL = 0.05
 DEFAULT_BUDGET_S = 150.0
+# The driver phase: run_stac on the main path's configuration with the
+# continuous crossfade (windows of CLIP + 10 frames), qvel inference and the
+# full payload. Its qvel (float32, on the card) is held against the same
+# function on the CPU in float64 on the artifact's qpos: translation and
+# joint columns to DRIVER_QVEL_REL relative; gyro columns to DRIVER_GYRO_ABS
+# = 2 sqrt(2 * 2^-23) / dt = 0.488 rad/s on the frames where the card's
+# float32 w of the normalised quaternion difference rounds to 1 (it comes
+# out within 2 ulps of its exact value; there the card returns the zero
+# rotation, float64 ~2|v| with |v| = sqrt(2 (1 - w)); see
+# tests/test_torch_velocity.py), DRIVER_GYRO_REST_ABS elsewhere.
+DRIVER = dict(THROUGHPUT, continuous=True, infer_qvels=True, ik_return_full=True)
+DRIVER_QVEL_REL = 1e-3
+DRIVER_GYRO_ABS = 0.49
+# Off those frames: the rounding of v in float32 quaternion products, a few
+# 2^-24, times 2 / dt, ~1e-4 rad/s; bounded at 1e-2.
+DRIVER_GYRO_REST_ABS = 1e-2
 
 
 def _sync_time(fn):
@@ -317,7 +346,8 @@ def phase_main(spd, device, bundle) -> dict:
         print(f"main: check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise AssertionError("main path checks failed")
-    return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s, "kp": kp, "true_off": true_off}
+    return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s, "kp": kp, "true_off": true_off,
+            "fit_resid": fit_resid, "ik_resid": ik_resid, "off_err": off_err}
 
 
 def phase_reference(device, bundle) -> None:
@@ -570,6 +600,163 @@ def phase_default(device, bundle, kp) -> None:
     })
 
 
+def _importable(name: str) -> bool:
+    try:
+        importlib.import_module(name)
+        return True
+    except ImportError:
+        return False
+
+
+class _MemoryArtifacts:
+    """Stands in for ``io.save_data_to_h5`` / ``io.load_stac_data`` where h5py
+    or PyYAML is missing: the artifacts' config and arrays are kept in memory
+    under their paths, so the resume contract (the ik reads the offsets and
+    its config back from the fit's artifact) still round-trips through it.
+    A double of the file I/O only: the solves run on the card either way."""
+
+    def __init__(self, io):
+        self.io, self.files = io, {}
+
+    def save(self, config, file_path, **fields):
+        self.files[str(file_path)] = (config.to_dict(), {k: copy.deepcopy(v) for k, v in fields.items()})
+
+    def load(self, file_path):
+        from stac_mjx_tpu_torch.config import config_from_dict
+
+        cfg, fields = self.files[str(file_path)]
+        return config_from_dict(copy.deepcopy(cfg)), self.io.StacData(**copy.deepcopy(fields))
+
+    @contextlib.contextmanager
+    def installed(self):
+        saved = self.io.save_data_to_h5, self.io.load_stac_data
+        self.io.save_data_to_h5, self.io.load_stac_data = self.save, self.load
+        try:
+            yield
+        finally:
+            self.io.save_data_to_h5, self.io.load_stac_data = saved
+
+
+@contextlib.contextmanager
+def _timed(owner, name: str, times: dict, after=None):
+    """Wraps owner.name so that each call adds its wall time to times[name]
+    (the wrapped functions end on the host, so the wall time holds the
+    card's work); after(), if given, runs after each call."""
+    fn = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+        if after is not None:
+            after()
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
+    """run_stac on the card: the config from the bundle's recorded model
+    config, the recording through a DANNCE .mat and load_data, the fit's
+    artifact read back by the ik (the resume contract), continuous ik with
+    the crossfade and qvel; launches, residuals and qvel checked."""
+    import tempfile
+
+    from scipy.io import savemat
+
+    from stac_mjx_tpu_torch import io
+    from stac_mjx_tpu_torch import main as driver
+    from stac_mjx_tpu_torch.config import config_from_dict
+    from stac_mjx_tpu_torch.stac import Stac
+    from stac_mjx_tpu_torch.utils.velocity import compute_velocity_from_kinematics
+
+    t_phase = time.perf_counter()
+    missing = [m for m in ("h5py", "yaml") if not _importable(m)]
+    if missing:
+        print(f"driver: {' and '.join(missing)} not importable here; the artifacts go to an in-memory store "
+              f"in place of h5 files (io.save_data_to_h5 / io.load_stac_data), the solves run on the card as ever")
+    else:
+        print("driver: h5py and PyYAML importable; the artifacts are h5 files, read back by io.load_stac_data")
+    kp_card, true_off = main_run["kp"], main_run["true_off"]
+    kp_host = kp_card.cpu().numpy()
+    times, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cfg = config_from_dict({"model": json.loads(str(bundle["model_config"])), "stac": dict(
+            DRIVER, fit_offsets_path="fit.h5", ik_only_path="ik.h5", data_path="recording.mat",
+            n_fit_frames=N_FIT, n_frames_per_clip=CLIP, skip_fit_offsets=False, skip_ik_only=False)})
+        scale = float(cfg.model.MOCAP_SCALE_FACTOR)
+        pred = np.transpose(kp_host.astype(np.float64).reshape(N_IK, -1, 3) / scale, (0, 2, 1))  # (F, 3, K)
+        savemat(tmp / "recording.mat", {"pred": pred})
+        kp_data, names = io.load_data(cfg, base_path=tmp)
+        mat_err = float(np.abs(kp_data - kp_host).max())
+        print(f"driver: recording {pred.shape} written as a DANNCE .mat (mocap units, x{1 / scale:g}) and "
+              f"loaded back by load_data: {kp_data.shape} {kp_data.dtype}, max |change| {mat_err:.3e} m")
+
+        def fit_done():
+            launches["fit"] = spd.KERNEL_LAUNCHES
+
+        with contextlib.ExitStack() as stack:
+            if missing:
+                stack.enter_context(_MemoryArtifacts(io).installed())
+            for owner, name, after in ((driver, "fit_phase", fit_done), (Stac, "ik_only", None),
+                                       (driver, "infer_qvels", None), (io, "save_data_to_h5", None)):
+                stack.enter_context(_timed(owner, name, times, after))
+            spd.KERNEL_LAUNCHES = 0
+            (fit_path, ik_path), run_s = _sync_time(
+                lambda: driver.run_stac(cfg, kp_data, names, base_path=tmp, device=device))
+            launches["ik"] = spd.KERNEL_LAUNCHES - launches["fit"]
+            (_, fit), (ik_cfg, ik) = io.load_stac_data(fit_path), io.load_stac_data(ik_path)
+
+    fit_resid = _resid(fit.marker_sites, fit.kp_data, N_FIT)
+    ik_resid = _resid(ik.marker_sites, ik.kp_data, N_IK)
+    off_err = float(np.abs(fit.offsets - true_off).mean())
+    q64 = torch.as_tensor(ik.qpos, dtype=torch.float64).reshape(-1, CLIP, ik.qpos.shape[-1])
+    with _one_cpu_thread():
+        want = compute_velocity_from_kinematics(q64, dt=float(bundle["timestep"])).reshape(N_IK, -1).numpy()
+    lin = np.r_[0:3, 6 : want.shape[1]]
+    rel = float((np.abs(ik.qvel[:, lin] - want[:, lin]) / np.maximum(np.abs(want[:, lin]), 1e-30)).max())
+    gyro = np.abs(ik.qvel[:, 3:6] - want[:, 3:6]).max(axis=1)
+    # Frames where float32 w rounded to 1: the card's zero rotation against
+    # float64's ~2|v|. Elsewhere the gyro is held to DRIVER_GYRO_REST_ABS.
+    flips = (ik.qvel[:, 3:6] == 0).all(axis=1) & (want[:, 3:6] != 0).any(axis=1)
+    rest = float(gyro[~flips].max(initial=0.0))
+    print(f"driver: run_stac in {run_s:.3f} s ({smi}): fit_phase {times['fit_phase']:.3f} s (its write "
+          f"included), ik solve {times['ik_only']:.3f} s, qvel {times['infer_qvels']:.4f} s, artifact writes "
+          f"{times['save_data_to_h5']:.4f} s ({'in memory' if missing else 'h5'}); kernel launches "
+          f"{launches['fit']} (fit) + {launches['ik']} (ik)")
+    print(f"driver: fit residual {fit_resid * 1e3:.4f} mm, offset error {off_err * 1e3:.4f} mm (main phase "
+          f"{main_run['fit_resid'] * 1e3:.4f}, {main_run['off_err'] * 1e3:.4f} mm); ik residual from the "
+          f"artifact's markers {ik_resid * 1e3:.4f} mm, {ik_resid / main_run['ik_resid']:.4f}x the main phase's "
+          f"{main_run['ik_resid'] * 1e3:.4f} mm (the crossfade blends qpos and markers in the 10-frame overlaps)")
+    print(f"driver: qvel {ik.qvel.shape} {ik.qvel.dtype}; card f32 vs cpu f64 on the artifact's qpos: "
+          f"translation and joints max rel {rel:.3e} (bound {DRIVER_QVEL_REL}), gyro max abs {gyro.max():.3e} rad/s "
+          f"(bound {DRIVER_GYRO_ABS}) in {int(flips.sum())} of {N_IK} frames where the card's float32 w rounded "
+          f"to 1, {rest:.3e} rad/s in the others (bound {DRIVER_GYRO_REST_ABS}); phase wall "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    _check_all("driver", {
+        f"fit launched the kernel {MAIN_LAUNCHES[0]} times": launches["fit"] == MAIN_LAUNCHES[0],
+        f"ik launched the kernel {MAIN_LAUNCHES[1]} times": launches["ik"] == MAIN_LAUNCHES[1],
+        f"fit residual < {FIT_RESID_MAX * 1e3} mm, within 2% of the main phase's":
+            fit_resid < FIT_RESID_MAX and abs(fit_resid - main_run["fit_resid"]) <= 0.02 * main_run["fit_resid"],
+        f"offset error < {OFFSET_ERR_MAX * 1e3} mm, within 2% of the main phase's":
+            off_err < OFFSET_ERR_MAX and abs(off_err - main_run["off_err"]) <= 0.02 * main_run["off_err"],
+        f"ik residual < {IK_RESID_MAX * 1e3} mm": ik_resid < IK_RESID_MAX,
+        "the ik artifact's config is the fit's": ik_cfg.to_dict() == cfg.to_dict(),
+        "qpos (10000, 44), qvel (10000, 43), finite": ik.qpos.shape == (N_IK, 44) and ik.qvel.shape == (N_IK, 43)
+            and bool(np.isfinite(ik.qpos).all() and np.isfinite(ik.qvel).all()),
+        "qvel joint columns within +-20": bool(np.abs(ik.qvel[:, 6:]).max() <= 20.0),
+        f"qvel translation and joints within {DRIVER_QVEL_REL} relative of cpu f64": rel <= DRIVER_QVEL_REL,
+        f"qvel gyro within {DRIVER_GYRO_ABS} rad/s of cpu f64": bool(gyro.max() <= DRIVER_GYRO_ABS),
+        f"qvel gyro within {DRIVER_GYRO_REST_ABS} rad/s where w < 1": rest <= DRIVER_GYRO_REST_ABS,
+    })
+    return {"launches": launches["fit"] + launches["ik"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
@@ -606,8 +793,9 @@ def main() -> int:
     phase_part_systems(spd, device, bundle, main_run["kp"])
     times = phase_kernel_times(spd, device)
     phase_default(device, bundle, main_run["kp"])
+    drv = phase_driver(spd, device, bundle, main_run, smi)
 
-    # launches: the main path's and the part passes' runs. ms, plain_ms and
+    # launches: the main path's, the part passes' and the driver's runs. ms, plain_ms and
     # library_ms: time per call on the stream, as since the first version of
     # this line; the *device_ms keys: torch.profiler device time.
     t = times[(37, 10_000)]
@@ -616,7 +804,8 @@ def main() -> int:
         "route": "cuda",
         "source": "stac_mjx_tpu_torch/csrc/spd_chol.cu",
         "replaces": "stac_mjx_tpu/ops/spd.py:42",
-        "launches": main_run["launches"] + parts["launches"],
+        "launches": main_run["launches"] + parts["launches"] + drv["launches"],
+        "launches_by_path": {"main": main_run["launches"], "parts": parts["launches"], "driver": drv["launches"]},
         "max_abs_err": kern["max_abs_err"],
         "ms": t["kernel"]["stream"],
         "plain_ms": t["plain"]["stream"],

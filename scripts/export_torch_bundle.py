@@ -4,8 +4,10 @@ The port runs where jax and mujoco may be missing, so the model the JAX
 package compiles (MJCF + keypoint sites + rescale, then ``extract_model`` and
 ``_align_joint_dims``) is frozen here, on a host that has both, into
 ``stac_mjx_tpu_torch/assets/<model>_bundle.npz``: a few KB of numpy arrays,
-with no pickled objects. ``tests/test_torch_bridge.py`` checks that the
-checked-in files still equal a fresh export.
+with no pickled objects, and the composed model config as a JSON string
+(``bridge.bundle_for_config`` matches configs against it).
+``tests/test_torch_bridge.py`` checks that the checked-in files still equal
+a fresh export.
 
     python scripts/export_torch_bundle.py                 # firstparty
     python scripts/export_torch_bundle.py --model synth_data --stac stac_synth_data
@@ -15,6 +17,7 @@ checked-in files still equal a fresh export.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from pathlib import Path
 
@@ -61,6 +64,8 @@ def bundle_arrays(
     )
     for k in MODEL_SCALARS:
         out[k] = np.asarray(getattr(cfg.model, k))
+    # The composed model config, by which the port finds this bundle.
+    out["model_config"] = np.array(json.dumps(cfg.model.to_dict()))
     return out
 
 

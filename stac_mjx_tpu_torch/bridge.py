@@ -12,13 +12,16 @@ Bundle keys: ``TOPOLOGY_FIELDS`` and ``KINPARAMS_FIELDS`` (the
 ``KinTopology`` constructor and ``KinParams`` arrays), ``site_idxs``,
 ``is_regularized``, ``lb``/``ub``/``part_names`` (from the JAX package's
 ``_align_joint_dims``, quirks included), ``jnt_range``, ``indiv_parts``,
-``trunk_kps``, ``root_kp_idx``, ``kp_names``, ``timestep`` and the model
-scalars in ``MODEL_SCALARS``.
+``trunk_kps``, ``root_kp_idx``, ``kp_names``, ``timestep``, the model
+scalars in ``MODEL_SCALARS`` and ``model_config``: the composed ``cfg.model``
+the bundle was exported from, as a JSON string, by which
+``bundle_for_config`` finds the bundle of a config.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 from typing import Mapping
 
@@ -47,6 +50,8 @@ KINPARAMS_FIELDS = (
     "body_pos", "body_quat", "jnt_axis", "jnt_pos", "qpos0", "site_pos", "site_quat",
 )
 MODEL_SCALARS = ("FTOL", "N_ITERS", "N_ITER_Q", "N_SAMPLE_FRAMES", "M_REG_COEF")
+# Model keys that only the data loader reads: a bundle serves any value.
+LOADER_KEYS = ("MOCAP_SCALE_FACTOR", "KP_NAMES", "KP_NAMES_LABEL3D_PATH")
 
 _NAME_FIELDS = ("body_names", "jnt_names", "site_names")
 
@@ -113,4 +118,47 @@ def fit_model_from_arrays(
         site_idxs=np.asarray(a["site_idxs"], np.int64),
         is_regularized=np.asarray(a["is_regularized"], np.float64),
         timestep=float(a["timestep"]),
+    )
+
+
+def _model_key_differences(recorded: Mapping, model: Mapping) -> list[str]:
+    """The keys that shape the fitting model and differ between two model
+    configs (absent keys take the schema's defaults). MJCF_PATH is compared
+    by file name, so a model named by another path to the same file matches."""
+    from stac_mjx_tpu_torch.config import ModelConfig
+
+    diffs = []
+    for f in dataclasses.fields(ModelConfig):
+        if f.name in MODEL_SCALARS or f.name in LOADER_KEYS:
+            continue
+        if f.default is not dataclasses.MISSING:
+            default = f.default
+        else:
+            default = None if f.default_factory is dataclasses.MISSING else f.default_factory()
+        a, b = recorded.get(f.name, default), model.get(f.name, default)
+        if f.name == "MJCF_PATH":
+            a, b = Path(str(a)).name, Path(str(b)).name
+        if a != b:
+            diffs.append(f.name)
+    return diffs
+
+
+def bundle_for_config(cfg) -> dict[str, np.ndarray]:
+    """The checked-in bundle exported from ``cfg.model``: the one whose
+    recorded model config equals it on every key that shapes the fitting
+    model. MODEL_SCALARS may differ (``Stac``'s ``model=`` overrides carry
+    them), and so may the loader's keys (LOADER_KEYS). Raises ValueError
+    when no bundle matches."""
+    model = cfg.model.to_dict()
+    seen = []
+    for path in sorted(ASSETS.glob("*_bundle.npz")):
+        bundle = load_bundle(path)
+        diffs = _model_key_differences(json.loads(str(bundle["model_config"])), model)
+        if not diffs:
+            return bundle
+        seen.append(f"{path.name} differs in {', '.join(diffs)}")
+    raise ValueError(
+        "no model bundle matches this model config (" + "; ".join(seen) + "). Export one on a host "
+        "with jax and mujoco: python scripts/export_torch_bundle.py --model <configs/model name> "
+        "--stac <configs/stac name> --out stac_mjx_tpu_torch/assets/<name>_bundle.npz"
     )

@@ -4,7 +4,7 @@ pose mode, q_solver, fk_impl and part schedule of the JAX package).
 Built from a model bundle (``bridge.load_bundle()``) plus a stac config with
 the keys of ``configs/stac/*.yaml`` given as a mapping; model scalars
 (N_ITERS, N_SAMPLE_FRAMES, ...) come from the bundle and may be overridden.
-Writing h5 files and loading YAML configs stay with the JAX package for now.
+``main.run_stac`` builds it from a composed config and writes the artifacts.
 """
 
 from __future__ import annotations
@@ -17,25 +17,10 @@ import torch
 
 from stac_mjx_tpu_torch import pipeline
 from stac_mjx_tpu_torch.bridge import MODEL_SCALARS, fit_model_from_arrays, resolve_device
+from stac_mjx_tpu_torch.io import StacData  # re-exported: the output container lives in io
 from stac_mjx_tpu_torch.models.kinematics import JNT_FREE, JNT_SLIDE
 from stac_mjx_tpu_torch.ops.stac_core import StacCore
 from stac_mjx_tpu_torch.utils.batching import batch_kp_data
-
-
-@dataclasses.dataclass
-class StacData:
-    """Output container; the fields of the JAX package's ``io.StacData``."""
-
-    qpos: np.ndarray
-    xpos: np.ndarray
-    xquat: np.ndarray
-    marker_sites: np.ndarray
-    offsets: np.ndarray
-    kp_data: np.ndarray
-    names_qpos: list
-    names_xpos: list
-    kp_names: list
-    qvel: np.ndarray = dataclasses.field(default_factory=lambda: np.array([]))
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -66,6 +51,7 @@ class Stac:
         fm = fit_model_from_arrays(bundle, self.device, dtype)
         self.topo = fm.topo
         self.params = fm.params
+        self.timestep = fm.timestep
         self._body_site_idxs = fm.site_idxs
         self._is_regularized = torch.as_tensor(fm.is_regularized, device=self.device).to(dtype)
         self._body_names = fm.topo.body_names

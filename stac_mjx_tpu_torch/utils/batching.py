@@ -1,4 +1,6 @@
-"""Clip batching of long recordings (port of ``stac_mjx_tpu/utils/batching.py::batch_kp_data``)."""
+"""Clip batching of long recordings and the overlap crossfade (port of
+``stac_mjx_tpu/utils/batching.py``). The crossfade is host-side numpy, as in
+the JAX package."""
 
 from __future__ import annotations
 
@@ -42,3 +44,49 @@ def batch_kp_data(kp_data, n_frames_per_clip: int, continuous: bool = False):
     if isinstance(kp_data, torch.Tensor):
         return torch.stack(batches, dim=0)
     return np.stack(batches, axis=0)
+
+
+def crossfade_sigmoid(a, b, *, axis=0, center=0.5, steepness=10.0):
+    """Numerically-stable sigmoid blend from a to b along an axis."""
+    n = a.shape[axis]
+    x = np.linspace(0.0, 1.0, n)
+    z = steepness * (x - center)
+    m = 0.5 * (1.0 + np.tanh(z / 2.0))
+    shape = [1] * a.ndim
+    shape[axis] = n
+    m = m.reshape(shape)
+    return (1.0 - m) * a + m * b
+
+
+def handle_edge_effects(ik_only_data, n_frames_per_clip: int):
+    """Crossfade the overlapping clip boundaries of a continuous ik and stitch
+    the windows back into one recording; in place on a StacData, returned.
+
+    The quirks of the JAX package are kept: quaternion columns are blended
+    linearly like every other column; the stitch is the first window, the
+    middle windows without their head and the last window without head and
+    tail, so the result has n_clips * n_frames_per_clip frames (with two
+    clips or more, each at least as long as the overlap); a lean payload's
+    empty xpos/xquat/marker_sites pass through untouched.
+    """
+
+    def f(data: np.ndarray) -> np.ndarray:
+        data = np.array(data)
+        if data.size == 0:
+            return data
+        batched = data.reshape((-1, n_frames_per_clip + CONTINUOUS_BATCH_OVERLAP) + data.shape[1:])
+        for i in range(batched.shape[0] - 1):
+            a = batched[i, -CONTINUOUS_BATCH_OVERLAP:]
+            b = batched[i + 1, :CONTINUOUS_BATCH_OVERLAP]
+            batched[i, -CONTINUOUS_BATCH_OVERLAP:] = crossfade_sigmoid(a, b, axis=0)
+        first = batched[0]
+        middle = batched[1:-1, CONTINUOUS_BATCH_OVERLAP:]
+        last = batched[-1, CONTINUOUS_BATCH_OVERLAP:-CONTINUOUS_BATCH_OVERLAP]
+        return np.concatenate([first, middle.reshape((-1,) + middle.shape[2:]), last], axis=0)
+
+    ik_only_data.qpos = f(ik_only_data.qpos)
+    ik_only_data.kp_data = f(ik_only_data.kp_data)
+    ik_only_data.xpos = f(ik_only_data.xpos)
+    ik_only_data.xquat = f(ik_only_data.xquat)
+    ik_only_data.marker_sites = f(ik_only_data.marker_sites)
+    return ik_only_data

@@ -1,7 +1,8 @@
 """What carries the model and the data across to the PyTorch port: the
 checked-in bundle, the numpy twin of JAX's permutation, the port's
-recording generator, and the port's independence from jax, mujoco, yaml
-and h5py."""
+recording generator, the bundle's lookup by model config, and the port's
+independence from jax and mujoco (and from yaml, h5py and scipy outside
+the driver's I/O)."""
 
 import importlib.util
 import re
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from _torch_common import REPO, jax_stac
+from stac_mjx_tpu.config import compose_config
 from stac_mjx_tpu.models import firstparty as jax_firstparty
 from stac_mjx_tpu_torch import bridge
 from stac_mjx_tpu_torch.models import firstparty
@@ -72,8 +74,9 @@ def test_make_recording_matches_jax():
 
 _NO_HOST_DEPS = r"""
 import sys
-for name in ("jax", "jaxlib", "mujoco", "yaml", "h5py", "stac_mjx_tpu"):
+for name in ("jax", "jaxlib", "mujoco", "yaml", "h5py", "scipy", "stac_mjx_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
+import json
 import numpy as np
 from stac_mjx_tpu_torch.bridge import load_bundle
 from stac_mjx_tpu_torch.models.firstparty import make_recording
@@ -90,6 +93,25 @@ d = Stac(b, {"n_frames_per_clip": 1}, model={"N_ITERS": 1, "N_ITER_Q": 3}, devic
 assert np.isfinite(d.fit_offsets(kp[:1]).qpos).all()
 s = Stac(load_bundle(bundle_path("synth_data")), {"n_frames_per_clip": 1}, device="cpu")
 assert np.isfinite(s.fit_offsets(kp[:1, :3]).qpos).all()
+
+# The driver: it imports, builds its config without PyYAML, and runs the fit
+# before the first artifact write needs h5py.
+import stac_mjx_tpu_torch.cli
+from stac_mjx_tpu_torch import main
+from stac_mjx_tpu_torch.config import config_from_dict
+cfg = config_from_dict({"model": json.loads(str(b["model_config"])), "stac": dict(
+    fit_offsets_path="fit.h5", ik_only_path="ik.h5", data_path="unused.nwb", n_fit_frames=4,
+    skip_fit_offsets=False, skip_ik_only=False, continuous=False, infer_qvels=False,
+    n_frames_per_clip=16, pose_mode="lockstep", q_solver="gn-lm", skip_part_opt=True, fk_impl="jump")})
+cfg.model.N_ITERS = 1
+fits = []
+fit_offsets = Stac.fit_offsets
+Stac.fit_offsets = lambda self, kp: fits.append(1) or fit_offsets(self, kp)
+try:
+    main.run_stac(cfg, kp, [str(n) for n in b["kp_names"]], base_path=".", device="cpu")
+    raise AssertionError("run_stac wrote an artifact without h5py")
+except ImportError as e:
+    assert "h5py" in str(e) and fits == [1], (e, fits)
 print("NO_HOST_DEPS_OK")
 """
 
@@ -100,6 +122,30 @@ def test_card_path_runs_without_jax_mujoco_yaml_h5py():
     )
     assert proc.returncode == 0, proc.stderr
     assert "NO_HOST_DEPS_OK" in proc.stdout
+
+
+@pytest.mark.parametrize(
+    "model,stac", [("firstparty", "firstparty"), ("synth_data", "stac_synth_data")]
+)
+def test_bundle_for_config_finds_the_exported_bundle(model, stac):
+    base = [f"model={model}", f"stac={stac}"]
+    want = bridge.load_bundle(bridge.bundle_path(model))
+    # The model scalars, the loader's keys and another path to the same
+    # MJCF file still match.
+    for extra in ([], ["model.N_ITERS=2", "model.FTOL=0.01", "model.MOCAP_SCALE_FACTOR=1.0", "model.KP_NAMES=null"],
+                  [f"model.MJCF_PATH={REPO / compose_config(REPO / 'configs', overrides=base).model.MJCF_PATH}"]):
+        got = bridge.bundle_for_config(compose_config(REPO / "configs", overrides=base + extra))
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_bundle_for_config_rejects_another_model():
+    base = ["model=firstparty", "stac=firstparty"]
+    for extra in (["model.KEYPOINT_INITIAL_OFFSETS.Snout=[0.03, 0.0, 0.0]"], ["model.SCALE_FACTOR=1.0"],
+                  ["model.MJCF_PATH=models/other.xml"]):
+        with pytest.raises(ValueError, match="no model bundle matches.*export_torch_bundle.py"):
+            bridge.bundle_for_config(compose_config(REPO / "configs", overrides=base + extra))
 
 
 _SMALL_CFG = dict(pose_mode="lockstep", q_solver="gn-lm", skip_part_opt=True, fk_impl="jump")
@@ -121,8 +167,20 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_never_imports_host_packages():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|mujoco|yaml|h5py|stac_mjx_tpu)\b", re.M)
-    files = sorted((REPO / "stac_mjx_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """jax, jaxlib, mujoco and the JAX package: nowhere in the port or in
+    chip_smoke.py. yaml, h5py and scipy: only inside the function bodies of
+    the port's config.py and io.py (and of chip_smoke.py, which writes a
+    DANNCE .mat with scipy), never at module level."""
+    never = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|mujoco|stac_mjx_tpu)\b", re.M)
+    top_level = re.compile(r"^(import|from)\s+(yaml|h5py|scipy)\b", re.M)
+    indented = re.compile(r"^\s+(import|from)\s+(yaml|h5py|scipy)\b", re.M)
+    port = REPO / "stac_mjx_tpu_torch"
+    files = sorted(port.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    may_import_in_functions = {port / "config.py", port / "io.py", REPO / "chip_smoke.py"}
     for path in files:
-        assert not pattern.search(path.read_text()), path
+        text = path.read_text()
+        assert not never.search(text), path
+        assert not top_level.search(text), path
+        if path not in may_import_in_functions:
+            assert not indented.search(text), path
