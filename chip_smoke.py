@@ -50,6 +50,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    under the bounds and within 2% of the main phase's; the card's float32
    qvel against the CPU's float64 on the artifact's qpos; wall times of the
    driver's steps;
+11. distributed: ``parallel.distributed.run_stac_distributed`` on the main
+   path's configuration (fit 250, ik 10,000 in 40 clips, the main phase's
+   recording through a DANNCE .mat), in rank processes started as torchrun
+   would start them (this script with ``--dist-worker``): one rank over
+   NCCL, whose K1 launches must be exactly 112 and 34, its residuals and
+   offset error the main phase's to the last printed digit and its qpos
+   within 1e-6 of the main phase's; and, at the same time, two ranks on the
+   one card over gloo with CUDA tensors (NCCL refuses two ranks on one
+   device): both ranks' gathered outputs bitwise equal, fit residual and
+   offset error under the bounds and within 2% of the main phase's (the
+   sharded m-phase samples other frames by design), and an ik of each
+   rank's 20 clips at the main phase's offsets within 1e-6 of the main
+   phase's ik; K1 against its plain version on a rank's fit systems
+   (F = 125);
+12. options: the main configuration with gn_stall_iters=3 (K1 launches at
+   most 112 and 34, residuals within 2% of the main phase's), with
+   wire_dtype=float16 (the residual of the markers recomputed from the
+   upcast qpos within 2e-4 m of the main phase's, fit and ik), the ik in
+   chunks of 8 clips against one batch (qpos within 1e-6; both walls, in
+   turns; K1 against its plain version on a chunk's fine-pass systems,
+   F = 2,000) and the sequential gn-lm ik on 40 clips of 6 frames in
+   segments of 2 frames against one call (qpos within 1e-6; K1 against its
+   plain version on the flat LM's lanes, F = 40);
+13. profiling: ``utils.profiling.device_trace`` around one main-path ik;
+   ``op_table`` must list K1's kernel with 34 launches and ``report()``
+   must hold ``ik_only``.
 
 Cuts, all of depth (the model keeps its full width, nq 44, nv 37, and the
 solver settings, N_ITER_Q 400 and FTOL 1e-4, stay): the default phase fits
@@ -62,6 +88,9 @@ N_ITERS 2.
 
 The second-to-last line is {"kernels": [...]} and the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
+
+``python3 chip_smoke.py --dist-worker <spec.json>`` is one rank of phase 11;
+phase 11 starts it, with torchrun's environment.
 """
 
 from __future__ import annotations
@@ -70,9 +99,12 @@ import contextlib
 import copy
 import importlib
 import json
+import os
 import re
+import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -347,7 +379,7 @@ def phase_main(spd, device, bundle) -> dict:
     if not all(checks.values()):
         raise AssertionError("main path checks failed")
     return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s, "kp": kp, "true_off": true_off,
-            "fit_resid": fit_resid, "ik_resid": ik_resid, "off_err": off_err}
+            "fit_resid": fit_resid, "ik_resid": ik_resid, "off_err": off_err, "fit": fit, "ik": ik, "stac": stac}
 
 
 def phase_reference(device, bundle) -> None:
@@ -447,42 +479,60 @@ def phase_parts(spd, device, bundle, kp, true_off) -> dict:
     return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s}
 
 
-def phase_part_systems(spd, device, bundle, kp) -> None:
-    """K1 on the systems of the fit's batched part pass: A, g and lam of one
-    LM iteration, captured on the card, against the plain version and float64."""
+@contextlib.contextmanager
+def _capturing(keep):
+    """While active, the first SPD system (A, g, lam) that the solvers pass
+    to the kernel's wrapper with keep(A, lam) true is cloned into the
+    yielded list (the solve itself is unchanged)."""
     from stac_mjx_tpu_torch.ops import gn_ik
-    from stac_mjx_tpu_torch.stac import Stac
 
     captured = []
     solve = gn_ik.spd_solve
 
     def capture(A, g, lam=None):
-        if not captured and A.shape[0] == 6 * N_FIT and lam is not None:
-            captured.append((A.clone(), g.clone(), lam.clone()))
+        if not captured and keep(A, lam):
+            captured.append((A.clone(), g.clone(), None if lam is None else lam.clone()))
         return solve(A, g, lam)
 
-    cfg = dict(THROUGHPUT, skip_part_opt=False, n_frames_per_clip=CLIP)
-    stac = Stac(bundle, cfg, model={"N_ITERS": 1}, device=device)
     gn_ik.spd_solve = capture
     try:
-        stac.fit_offsets(kp[:N_FIT])
+        yield captured
     finally:
         gn_ik.spd_solve = solve
-    A, g, lam = captured[0]
+
+
+def _kernel_vs_plain(spd, A, g, lam) -> tuple[float, float, bool]:
+    """The kernel against its plain version and a float64 solve on captured
+    systems: (max |dx| / max |x| vs plain, the same vs float64, x finite)."""
     n = A.shape[-1]
     x = spd.spd_solve_cuda(A, g, lam)
     plain = spd.spd_solve_plain(A, g, lam)
-    A64 = A.double() + lam.double()[:, None, None] * torch.eye(n, dtype=torch.float64, device=device)
+    A64 = A.double() + (0 if lam is None else lam.double()[:, None, None] * torch.eye(n, dtype=torch.float64,
+                                                                                     device=A.device))
     x64 = torch.linalg.solve(A64, g.double())
     torch.cuda.synchronize()
-    lam_rows = int((A.abs().sum(-1) == 0).sum())
     err_plain = float((x - plain).abs().max() / plain.abs().max())
     err_f64 = float((x.double() - x64).abs().max() / x64.abs().max())
+    return err_plain, err_f64, bool(torch.isfinite(x).all())
+
+
+def phase_part_systems(spd, device, bundle, kp) -> None:
+    """K1 on the systems of the fit's batched part pass: A, g and lam of one
+    LM iteration, captured on the card, against the plain version and float64."""
+    from stac_mjx_tpu_torch.stac import Stac
+
+    cfg = dict(THROUGHPUT, skip_part_opt=False, n_frames_per_clip=CLIP)
+    stac = Stac(bundle, cfg, model={"N_ITERS": 1}, device=device)
+    with _capturing(lambda A, lam: A.shape[0] == 6 * N_FIT and lam is not None) as captured:
+        stac.fit_offsets(kp[:N_FIT])
+    A, g, lam = captured[0]
+    err_plain, err_f64, finite = _kernel_vs_plain(spd, A, g, lam)
+    lam_rows = int((A.abs().sum(-1) == 0).sum())
     print(f"part systems: A {tuple(A.shape)} from the fit's batched part pass, {lam_rows} lam-only rows; "
           f"kernel vs plain {err_plain:.3e}, vs f64 {err_f64:.3e} (bound {KERNEL_REL_TOL})")
     _check_all("part systems", {
         "kernel within bound of plain and f64": err_plain < KERNEL_REL_TOL and err_f64 < KERNEL_REL_TOL,
-        "x finite": bool(torch.isfinite(x).all()),
+        "x finite": finite,
     })
 
 
@@ -641,7 +691,7 @@ class _MemoryArtifacts:
 def _timed(owner, name: str, times: dict, after=None):
     """Wraps owner.name so that each call adds its wall time to times[name]
     (the wrapped functions end on the host, so the wall time holds the
-    card's work); after(), if given, runs after each call."""
+    card's work); after(result), if given, runs after each call."""
     fn = getattr(owner, name)
 
     def wrapper(*args, **kwargs):
@@ -649,7 +699,7 @@ def _timed(owner, name: str, times: dict, after=None):
         out = fn(*args, **kwargs)
         times[name] = times.get(name, 0.0) + time.perf_counter() - t0
         if after is not None:
-            after()
+            after(out)
         return out
 
     setattr(owner, name, wrapper)
@@ -659,15 +709,21 @@ def _timed(owner, name: str, times: dict, after=None):
         setattr(owner, name, fn)
 
 
+def _write_mat(cfg, kp_host: np.ndarray, path: Path) -> np.ndarray:
+    """The recording as a DANNCE .mat ("pred", (F, 3, K), mocap units); returns pred."""
+    from scipy.io import savemat
+
+    scale = float(cfg.model.MOCAP_SCALE_FACTOR)
+    pred = np.transpose(kp_host.astype(np.float64).reshape(kp_host.shape[0], -1, 3) / scale, (0, 2, 1))
+    savemat(path, {"pred": pred})
+    return pred
+
+
 def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
     """run_stac on the card: the config from the bundle's recorded model
     config, the recording through a DANNCE .mat and load_data, the fit's
     artifact read back by the ik (the resume contract), continuous ik with
     the crossfade and qvel; launches, residuals and qvel checked."""
-    import tempfile
-
-    from scipy.io import savemat
-
     from stac_mjx_tpu_torch import io
     from stac_mjx_tpu_torch import main as driver
     from stac_mjx_tpu_torch.config import config_from_dict
@@ -689,15 +745,13 @@ def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
         cfg = config_from_dict({"model": json.loads(str(bundle["model_config"])), "stac": dict(
             DRIVER, fit_offsets_path="fit.h5", ik_only_path="ik.h5", data_path="recording.mat",
             n_fit_frames=N_FIT, n_frames_per_clip=CLIP, skip_fit_offsets=False, skip_ik_only=False)})
-        scale = float(cfg.model.MOCAP_SCALE_FACTOR)
-        pred = np.transpose(kp_host.astype(np.float64).reshape(N_IK, -1, 3) / scale, (0, 2, 1))  # (F, 3, K)
-        savemat(tmp / "recording.mat", {"pred": pred})
+        pred = _write_mat(cfg, kp_host, tmp / "recording.mat")
         kp_data, names = io.load_data(cfg, base_path=tmp)
         mat_err = float(np.abs(kp_data - kp_host).max())
-        print(f"driver: recording {pred.shape} written as a DANNCE .mat (mocap units, x{1 / scale:g}) and "
+        print(f"driver: recording {pred.shape} written as a DANNCE .mat (mocap units, x{1 / float(cfg.model.MOCAP_SCALE_FACTOR):g}) and "
               f"loaded back by load_data: {kp_data.shape} {kp_data.dtype}, max |change| {mat_err:.3e} m")
 
-        def fit_done():
+        def fit_done(_):
             launches["fit"] = spd.KERNEL_LAUNCHES
 
         with contextlib.ExitStack() as stack:
@@ -757,6 +811,348 @@ def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
     return {"launches": launches["fit"] + launches["ik"]}
 
 
+
+# Phase 11: the main path's configuration through run_stac_distributed, in
+# rank processes. DIST_TIMEOUT_S bounds each rank process.
+DIST = dict(THROUGHPUT, skip_fit_offsets=False, skip_ik_only=False, infer_qvels=False)
+DIST_TIMEOUT_S = 300
+DIST_QPOS_ABS = 1e-6
+# The two-rank fit: each rank warm-starts its pose passes from its own last
+# frame (the JAX sharded fit's schedule), which lands closer to its frames
+# than the one-rank carry does, and samples its own frames. Bound: no more
+# than 2% above the main phase's fit residual and offset error.
+DIST_REL = 0.02
+# Clips are independent, and the flat LM rounds alike in any batch
+# (``GNIK._gradient``): a rank's 20 clips or a chunk of 8 at the main
+# phase's offsets end within DIST_QPOS_ABS of the main phase's ik.
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _start_ranks(tag: str, world: int, spec: dict, tmp: Path) -> list:
+    """``world`` rank processes of this script (``--dist-worker``), with the
+    environment torchrun gives its workers."""
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        spec_path = tmp / f"{tag}_rank{rank}.json"
+        spec_path.write_text(json.dumps(dict(spec, out=str(tmp / f"{tag}_rank{rank}.npz"))))
+        env = dict(os.environ, WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dist-worker", str(spec_path)],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _join_ranks(tag: str, procs: list, tmp: Path) -> list[dict]:
+    """Waits for every rank (killing all of them on a timeout or a failure),
+    prints each rank's lines, and returns each rank's saved arrays."""
+    logs, failed = [], None
+    for rank, proc in enumerate(procs):
+        try:
+            out, _ = proc.communicate(timeout=DIST_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            out, failed = "", f"rank {rank} timed out after {DIST_TIMEOUT_S} s"
+        logs.append(out)
+        if failed is None and proc.returncode != 0:
+            failed = f"rank {rank} exited with {proc.returncode}"
+        if failed:
+            for other in procs:
+                other.kill()
+                other.communicate()
+            break
+    for rank, out in enumerate(logs):
+        for ln in out.splitlines():
+            if ln.startswith("dist-worker") or failed:
+                print(f"{tag} rank {rank}: {ln}")
+    if failed:
+        raise AssertionError(f"{tag}: {failed}")
+    return [dict(np.load(tmp / f"{tag}_rank{rank}.npz")) for rank in range(len(procs))]
+
+
+def dist_worker(spec_path: str) -> int:
+    """One rank of phase 11: run_stac_distributed on the card, then (with
+    spec["ik_main_offsets"]) an ik of this rank's clips at the main phase's
+    offsets; K1 against its plain version on the first captured system of
+    spec["capture_F"] frames. Saves the rank's results to spec["out"]."""
+    spec = json.loads(Path(spec_path).read_text())
+    sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
+    import torch.distributed as dist
+
+    from stac_mjx_tpu_torch import io
+    from stac_mjx_tpu_torch import main as driver
+    from stac_mjx_tpu_torch.config import config_from_dict
+    from stac_mjx_tpu_torch.ops import spd
+    from stac_mjx_tpu_torch.parallel.distributed import (
+        init_distributed, local_clip_range, make_global_clips, pod_mesh, run_stac_distributed)
+    from stac_mjx_tpu_torch.stac import Stac
+    from stac_mjx_tpu_torch.utils.batching import batch_kp_data
+
+    device = torch.device(spec["device"])
+    init_distributed(backend=spec["backend"], device=device)  # torchrun's environment
+    mesh = pod_mesh(device)
+    cfg = config_from_dict(spec["config"])
+    results, times, launches = {}, {}, {}
+
+    def keep(what):
+        def after(out):
+            results[what], launches[what] = out, spd.KERNEL_LAUNCHES
+        return after
+
+    missing = [m for m in ("h5py", "yaml") if not _importable(m)]
+    capture_f = spec.get("capture_F", -1)
+    with contextlib.ExitStack() as stack:
+        if missing:
+            stack.enter_context(_MemoryArtifacts(io).installed())
+        stack.enter_context(_timed(Stac, "fit_offsets_sharded", times, keep("fit")))
+        stack.enter_context(_timed(Stac, "ik_only_global", times, keep("ik")))
+        captured = stack.enter_context(_capturing(lambda A, lam: A.shape[0] == capture_f and lam is not None))
+        dist.barrier()
+        spd.KERNEL_LAUNCHES = 0
+        _, run_s = _sync_time(lambda: run_stac_distributed(cfg, base_path=spec["dir"], mesh=mesh))
+    fit, ik = results["fit"], results["ik"]
+    out = {"fit_qpos": fit.qpos, "fit_offsets": fit.offsets, "fit_markers": fit.marker_sites,
+           "fit_kp": fit.kp_data, "ik_qpos": ik.qpos, "ik_markers": ik.marker_sites, "ik_kp": ik.kp_data,
+           "launches": np.array([launches["fit"], launches["ik"] - launches["fit"]]),
+           "walls": np.array([run_s, times["fit_offsets_sharded"], times["ik_only_global"]])}
+    if spec.get("ik_main_offsets"):
+        kp_data, names = io.load_data(cfg, base_path=spec["dir"])
+        batched = batch_kp_data(np.asarray(kp_data, np.float32), CLIP)
+        lo, hi = local_clip_range(batched.shape[0], mesh)
+        stac = driver.make_stac(cfg, names, device=device)
+        spd.KERNEL_LAUNCHES = 0
+        ik_main = stac.ik_only_global(make_global_clips(batched[lo:hi], mesh), np.load(spec["ik_main_offsets"]), mesh)
+        out["ik_main_qpos"], out["ik_main_launches"] = ik_main.qpos, np.array(spd.KERNEL_LAUNCHES)
+    if captured:
+        A, g, lam = captured[0]
+        out["capture"] = np.array([A.shape[0], *_kernel_vs_plain(spd, A, g, lam)])
+    np.savez(spec["out"], **out)
+    print(f"dist-worker: {spec['backend']} rank {mesh.rank} of {mesh.size} on {device}: run_stac_distributed "
+          f"{run_s:.3f} s (fit {times['fit_offsets_sharded']:.3f} s, ik {times['ik_only_global']:.3f} s), "
+          f"K1 launches {out['launches'].tolist()}", flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _fmt_mm(x: float) -> str:
+    return f"{x * 1e3:.4f}"
+
+
+def _ik_agreement(main_run, qpos: np.ndarray) -> dict:
+    """An ik's qpos at the main phase's fit offsets against the main phase's
+    ik: max |dqpos|, frames with any |dqpos| > DIST_QPOS_ABS, mean residuals
+    (markers from both qpos by the main Stac's FK) and max |dmarker|."""
+    stac, ref = main_run["stac"], main_run["ik"].qpos
+    stac._offsets = main_run["fit"].offsets
+    kp_host = main_run["kp"].cpu().numpy()
+    _, _, markers = stac.compute_full_outputs(qpos)
+    _, _, ref_markers = stac.compute_full_outputs(ref)
+    dq = np.abs(qpos - ref)
+    return {"dq": float(dq.max()), "frames": int((dq.max(axis=1) > DIST_QPOS_ABS).sum()),
+            "resid": _resid(markers, kp_host, N_IK), "ref_resid": _resid(ref_markers, kp_host, N_IK),
+            "dmarker": float(np.abs(markers - ref_markers).max())}
+
+
+def _agreement_line(a: dict) -> str:
+    return (f"max |qpos - main| {a['dq']:.3e} ({a['frames']} of {N_IK} frames above {DIST_QPOS_ABS}), max |marker - "
+            f"main| {a['dmarker']:.3e} m, mean residual {_fmt_mm(a['resid'])} mm ({a['resid'] / a['ref_resid']:.6f}x "
+            f"main)")
+
+
+
+def phase_distributed(spd, device, bundle, main_run, smi: str) -> dict:
+    """run_stac_distributed over one rank (NCCL) and, at the same time, two
+    ranks on the one card (gloo, CUDA tensors), against the main phase."""
+    from stac_mjx_tpu_torch.config import config_from_dict
+
+    t_phase = time.perf_counter()
+    fit0, ik0 = main_run["fit"], main_run["ik"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        conf = {"model": json.loads(str(bundle["model_config"])), "stac": dict(
+            DIST, fit_offsets_path="fit.h5", ik_only_path="ik.h5", data_path=str(tmp / "recording.mat"),
+            n_fit_frames=N_FIT, n_frames_per_clip=CLIP)}
+        _write_mat(config_from_dict(conf), main_run["kp"].cpu().numpy(), tmp / "recording.mat")
+        np.save(tmp / "main_offsets.npy", fit0.offsets)
+        spec = {"config": conf, "device": str(device)}
+        for tag in ("nccl1", "gloo2"):  # each run writes its artifacts in a directory of its own
+            (tmp / tag).mkdir()
+        one = _start_ranks("nccl1", 1, dict(spec, backend="nccl", dir=str(tmp / "nccl1")), tmp)
+        two = _start_ranks("gloo2", 2, dict(spec, backend="gloo", dir=str(tmp / "gloo2"), capture_F=N_FIT // 2,
+                                            ik_main_offsets=str(tmp / "main_offsets.npy")), tmp)
+        try:
+            (r1,), (ra, rb) = _join_ranks("nccl1", one, tmp), _join_ranks("gloo2", two, tmp)
+        finally:
+            for proc in one + two:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+
+    def quality(r):
+        return (_resid(r["fit_markers"], r["fit_kp"], N_FIT), float(np.abs(r["fit_offsets"] - main_run["true_off"]).mean()),
+                _resid(r["ik_markers"], r["ik_kp"], N_IK))
+
+    q_main = (main_run["fit_resid"], main_run["off_err"], main_run["ik_resid"])
+    q1, q2 = quality(r1), quality(ra)
+    names = ("fit residual", "offset error", "ik residual")
+    d1 = max(float(np.abs(r1["fit_qpos"] - fit0.qpos).max()), float(np.abs(r1["ik_qpos"] - ik0.qpos).max()))
+    a2 = _ik_agreement(main_run, ra["ik_main_qpos"])
+    print(f"distributed: nccl world 1, {smi}: launches {r1['launches'].tolist()}; "
+          + ", ".join(f"{n} {_fmt_mm(a)} mm (main {_fmt_mm(b)})" for n, a, b in zip(names, q1, q_main))
+          + f"; max |qpos - main| {d1:.3e}; walls run/fit/ik {', '.join(f'{w:.3f}' for w in r1['walls'])} s")
+    print(f"distributed: gloo world 2 on one card: launches per rank {ra['launches'].tolist()}, "
+          f"{rb['launches'].tolist()}; "
+          + ", ".join(f"{n} {_fmt_mm(a)} mm ({a / b:.4f}x main)" for n, a, b in zip(names, q2, q_main))
+          + f"; walls run/fit/ik rank 0 {', '.join(f'{w:.3f}' for w in ra['walls'])} s")
+    print(f"distributed: ik of each rank's 20 clips at the main offsets, launches {int(ra['ik_main_launches'])} per "
+          f"rank: {_agreement_line(a2)}")
+    F_cap, err_plain, err_f64, finite = ra["capture"]
+    print(f"distributed: K1 on a rank's fit systems, F = {int(F_cap)}: vs plain {err_plain:.3e}, vs f64 "
+          f"{err_f64:.3e} (bound {KERNEL_REL_TOL}); phase wall {time.perf_counter() - t_phase:.2f} s")
+    same = all(np.array_equal(ra[k], rb[k]) for k in ra if k not in ("walls", "capture", "launches"))
+    _check_all("distributed", {
+        f"world 1 launched the kernel {MAIN_LAUNCHES[0]} + {MAIN_LAUNCHES[1]} times":
+            tuple(r1["launches"]) == MAIN_LAUNCHES,
+        "world 1 residuals and offset error equal the main phase's to the printed digit":
+            all(_fmt_mm(a) == _fmt_mm(b) for a, b in zip(q1, q_main)),
+        f"world 1 qpos within {DIST_QPOS_ABS} of the main phase's": d1 <= DIST_QPOS_ABS,
+        "world 2: both ranks' gathered outputs bitwise equal": same,
+        f"world 2 fit residual and offset error < {FIT_RESID_MAX * 1e3} mm, at most {DIST_REL:.0%} above main":
+            all(a < FIT_RESID_MAX and a <= (1 + DIST_REL) * b for a, b in zip(q2[:2], q_main[:2])),
+        f"world 2 ik residual < {IK_RESID_MAX * 1e3} mm": q2[2] < IK_RESID_MAX,
+        f"world 2 ik at the main offsets within {DIST_QPOS_ABS} of the main phase's qpos": a2["dq"] <= DIST_QPOS_ABS,
+        "world 2 outputs finite, full shapes": bool(np.isfinite(ra["ik_qpos"]).all()) and ra["ik_qpos"].shape
+            == (N_IK, 44) and ra["fit_qpos"].shape == (N_FIT, 44),
+        f"K1 at F = {int(F_cap)} within bound of plain and f64, finite":
+            err_plain < KERNEL_REL_TOL and err_f64 < KERNEL_REL_TOL and bool(finite),
+    })
+    return {"launches": int(r1["launches"].sum()), "launches_2": int(ra["launches"].sum() + rb["launches"].sum()
+                                                                         + ra["ik_main_launches"] + rb["ik_main_launches"])}
+
+
+# Phase 12: the options, at the main path's sizes. OPT_REL: stall freezing
+# stops a lane only after 3 iterations without a gain above FTOL^2, so its
+# residuals stay within 2% of the fixed count's. WIRE_ABS: float16 keypoints
+# centred on the recording's mean are quantised to ~1e-4 m
+# (tests/test_pipeline.py::test_wire_f16_matches_f32's bound).
+OPT_REL = 0.02
+WIRE_ABS = 2e-4
+CHUNK, SEG_CLIPS, SEG_CLIP, SEG = 8, 40, 6, 2
+
+
+def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
+    from stac_mjx_tpu_torch.stac import Stac
+
+    t_phase = time.perf_counter()
+    kp, fit0, ik0 = main_run["kp"], main_run["fit"], main_run["ik"]
+    kp_host = kp.cpu().numpy()
+    cfg = dict(THROUGHPUT, n_fit_frames=N_FIT, n_frames_per_clip=CLIP)
+    launches, checks = {}, {}
+
+    def fit_ik(stac):
+        spd.KERNEL_LAUNCHES = 0
+        fit, fit_s = _sync_time(lambda: stac.fit_offsets(kp[:N_FIT]))
+        n_fit = spd.KERNEL_LAUNCHES
+        ik, ik_s = _sync_time(lambda: stac.ik_only(kp, fit.offsets))
+        _, _, fit_markers = stac.compute_full_outputs(fit.qpos)  # at fit.offsets
+        _, _, ik_markers = stac.compute_full_outputs(ik.qpos)
+        return ((n_fit, spd.KERNEL_LAUNCHES - n_fit), (fit_s, ik_s),
+                (_resid(fit_markers, fit.kp_data, N_FIT), _resid(ik_markers, kp_host, N_IK)), fit)
+
+    main_q = (main_run["fit_resid"], main_run["ik_resid"])
+    (lf, li), (fs, is_), q, _ = fit_ik(Stac(bundle, dict(cfg, gn_stall_iters=3), device=device))
+    launches["stall"] = lf + li
+    print(f"options: gn_stall_iters=3 ({smi}): fit {fs:.3f} s (main {main_run['fit_s']:.3f}), ik {is_:.3f} s (main "
+          f"{main_run['ik_s']:.3f}); K1 launches {lf} + {li} (fixed count {MAIN_LAUNCHES[0]} + {MAIN_LAUNCHES[1]}); "
+          f"fit/ik residual {_fmt_mm(q[0])}/{_fmt_mm(q[1])} mm (main {_fmt_mm(main_q[0])}/{_fmt_mm(main_q[1])})")
+    checks[f"stall: launches at most {MAIN_LAUNCHES}"] = lf <= MAIN_LAUNCHES[0] and li <= MAIN_LAUNCHES[1]
+    checks[f"stall: residuals within {OPT_REL:.0%} of main"] = all(abs(a - b) <= OPT_REL * b for a, b in zip(q, main_q))
+
+    (lf, li), (fs, is_), q, wfit = fit_ik(Stac(bundle, dict(cfg, wire_dtype="float16"), device=device))
+    launches["wire16"] = lf + li
+    print(f"options: wire_dtype=float16: fit {fs:.3f} s, ik {is_:.3f} s; K1 launches {lf} + {li}; residual of the "
+          f"markers recomputed from the upcast qpos, fit/ik {_fmt_mm(q[0])}/{_fmt_mm(q[1])} mm (main "
+          f"{_fmt_mm(main_q[0])}/{_fmt_mm(main_q[1])}); offset error "
+          f"{_fmt_mm(float(np.abs(wfit.offsets - main_run['true_off']).mean()))} mm; qpos dtype {wfit.qpos.dtype}")
+    checks[f"wire16: residuals within {WIRE_ABS} m of main"] = all(abs(a - b) <= WIRE_ABS for a, b in zip(q, main_q))
+    checks["wire16: launches as the main path's"] = (lf, li) == MAIN_LAUNCHES
+
+    stacs = {"one": Stac(bundle, cfg, device=device), "chunked": Stac(bundle, dict(cfg, ik_chunk_clips=CHUNK),
+                                                                       device=device)}
+    runs = {"one": [], "chunked": []}  # (wall, K1 launches, qpos) per run, in turns
+    with _capturing(lambda A, lam: A.shape[0] == CHUNK * CLIP and lam is not None) as captured:
+        for what in ("one", "chunked", "chunked", "one"):
+            spd.KERNEL_LAUNCHES = 0
+            ik, wall = _sync_time(lambda st=stacs[what]: st.ik_only(kp, fit0.offsets))
+            runs[what].append((wall, spd.KERNEL_LAUNCHES, ik.qpos))
+    A, g, lam = captured[0]
+    c_plain, c_f64, c_fin = _kernel_vs_plain(spd, A, g, lam)
+    launches["chunked"] = sum(r[1] for rs in runs.values() for r in rs)
+    agree = {what: _ik_agreement(main_run, rs[0][2]) for what, rs in runs.items()}
+    repeat = {what: bool(np.array_equal(rs[0][2], rs[1][2])) for what, rs in runs.items()}
+    print(f"options: ik in chunks of {CHUNK} clips vs one batch, walls in turns: one "
+          f"{', '.join(f'{r[0]:.3f}' for r in runs['one'])} s, chunked {', '.join(f'{r[0]:.3f}' for r in runs['chunked'])}"
+          f" s; K1 launches per ik {runs['chunked'][0][1]} vs {runs['one'][0][1]}; repeat runs bitwise equal {repeat}; "
+          f"K1 at F = {A.shape[0]} vs plain {c_plain:.3e}, vs f64 {c_f64:.3e}")
+    for what, a in agree.items():
+        print(f"options: {what} vs the main phase's ik: {_agreement_line(a)}")
+        checks[f"{what}: ik qpos within {DIST_QPOS_ABS} of the main phase's"] = a["dq"] <= DIST_QPOS_ABS
+    checks[f"chunked: K1 at F = {CHUNK * CLIP} within bound"] = (
+        c_plain < KERNEL_REL_TOL and c_f64 < KERNEL_REL_TOL and c_fin)
+
+    seq = dict(THROUGHPUT, pose_mode="sequential", n_frames_per_clip=SEG_CLIP)
+    kp_s = kp[: SEG_CLIPS * SEG_CLIP]
+    out = {}
+    for seg in (-1, SEG):
+        st = Stac(bundle, dict(seq, seq_segment_frames=seg), device=device)
+        with _capturing(lambda A, lam: A.shape[0] == SEG_CLIPS and lam is None) as captured:
+            spd.KERNEL_LAUNCHES = 0
+            out[seg], wall = _sync_time(lambda st=st: st.ik_only(kp_s, fit0.offsets))
+            out[f"{seg}_launches"], out[f"{seg}_wall"] = spd.KERNEL_LAUNCHES, wall
+    A, g, lam = captured[0]
+    s_plain, s_f64, s_fin = _kernel_vs_plain(spd, A, g, lam)
+    d = float(np.abs(out[SEG].qpos - out[-1].qpos).max())
+    launches["segmented"] = out[f"{SEG}_launches"] + out["-1_launches"]
+    print(f"options: sequential gn-lm ik, {SEG_CLIPS} clips of {SEG_CLIP} frames, segments of {SEG} vs one call: "
+          f"max |qpos delta| {d:.3e}; walls {out[f'{SEG}_wall']:.3f} / {out['-1_wall']:.3f} s; K1 launches "
+          f"{out[f'{SEG}_launches']} / {out['-1_launches']}; K1 on the lanes, F = {A.shape[0]}: vs plain "
+          f"{s_plain:.3e}, vs f64 {s_f64:.3e}; phase wall {time.perf_counter() - t_phase:.2f} s")
+    checks[f"segmented: qpos within {DIST_QPOS_ABS} of one call"] = d <= DIST_QPOS_ABS
+    checks[f"segmented: K1 at F = {SEG_CLIPS} within bound"] = s_plain < KERNEL_REL_TOL and s_f64 < KERNEL_REL_TOL and s_fin
+    _check_all("options", checks)
+    return {"launches": launches}
+
+
+def phase_profiling(spd, main_run) -> dict:
+    """device_trace around one main-path ik; op_table must name K1's kernel
+    with the ik's 34 launches, report() must hold the ik_only phase."""
+    from stac_mjx_tpu_torch.utils import profiling
+
+    stac, kp, fit = main_run["stac"], main_run["kp"], main_run["fit"]
+    profiling.reset()
+    with tempfile.TemporaryDirectory() as logdir:
+        spd.KERNEL_LAUNCHES = 0
+        with profiling.device_trace(logdir):
+            stac.ik_only(kp, fit.offsets)
+        n = spd.KERNEL_LAUNCHES
+        table = profiling.op_table(logdir, top=10**6)
+    k1 = [o for o in table["ops"] if "spd_chol" in o["op"]]
+    rep = profiling.report()
+    top = ", ".join(f"{o['op'][:40]} {o['us']:.0f} us x{o['count']}" for o in table["ops"][:4])
+    print(f"profiling: traced ik: {len(table['ops'])} kernels, {table['total_op_us'] / 1e3:.3f} ms of kernel time, "
+          f"copies {table['copy_formatting_pct']}%; K1 {k1[0]['op'] if k1 else 'absent'}: "
+          f"{k1[0]['count'] if k1 else 0} launches, {k1[0]['us'] if k1 else 0:.1f} us; top: {top}; report {rep}")
+    _check_all("profiling", {
+        f"op_table lists K1 with {MAIN_LAUNCHES[1]} launches": len(k1) == 1 and k1[0]["count"] == MAIN_LAUNCHES[1] == n,
+        "report() holds ik_only": rep.get("ik_only", {}).get("count") == 1,
+    })
+    return {"launches": n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
@@ -794,18 +1190,27 @@ def main() -> int:
     times = phase_kernel_times(spd, device)
     phase_default(device, bundle, main_run["kp"])
     drv = phase_driver(spd, device, bundle, main_run, smi)
+    t_new = time.perf_counter()
+    dist_run = phase_distributed(spd, device, bundle, main_run, smi)
+    opts = phase_options(spd, device, bundle, main_run, smi)["launches"]
+    prof = phase_profiling(spd, main_run)
+    print(f"phases 11-13 (distributed, options, profiling) in {time.perf_counter() - t_new:.1f} s")
 
-    # launches: the main path's, the part passes' and the driver's runs. ms, plain_ms and
+    # launches: every path's run (the rank processes' counts included). ms, plain_ms and
     # library_ms: time per call on the stream, as since the first version of
     # this line; the *device_ms keys: torch.profiler device time.
+    by_path = {"main": main_run["launches"], "parts": parts["launches"], "driver": drv["launches"],
+               "distributed_1": dist_run["launches"], "distributed_2": dist_run["launches_2"],
+               "stall": opts["stall"], "wire16": opts["wire16"], "chunked": opts["chunked"],
+               "segmented": opts["segmented"], "profiling": prof["launches"]}
     t = times[(37, 10_000)]
     print(json.dumps({"kernels": [{
         "name": "spd_chol_solve_f32",
         "route": "cuda",
         "source": "stac_mjx_tpu_torch/csrc/spd_chol.cu",
         "replaces": "stac_mjx_tpu/ops/spd.py:42",
-        "launches": main_run["launches"] + parts["launches"] + drv["launches"],
-        "launches_by_path": {"main": main_run["launches"], "parts": parts["launches"], "driver": drv["launches"]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": kern["max_abs_err"],
         "ms": t["kernel"]["stream"],
         "plain_ms": t["plain"]["stream"],
@@ -821,4 +1226,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

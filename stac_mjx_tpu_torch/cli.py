@@ -5,9 +5,12 @@ free-form ``group=name`` / ``a.b=value`` overrides forwarded to config
 composition. ``--cpu`` runs on the CPU; without it the run needs a CUDA
 device and raises when there is none. ``--skip-xla-flags`` is accepted and
 does nothing (there are no XLA flags here), so the JAX package's command
-lines run unchanged. ``--distributed`` is not ported yet.
+lines run unchanged. ``--distributed`` runs one process per card under
+torchrun (``parallel.distributed.run_stac_distributed``): NCCL between the
+cards, or gloo on the CPU with ``--cpu``.
 
     python -m stac_mjx_tpu_torch.cli --config-path configs model=firstparty stac=firstparty
+    torchrun --nproc-per-node 4 -m stac_mjx_tpu_torch.cli --distributed --config-path configs ...
 """
 
 from __future__ import annotations
@@ -25,7 +28,14 @@ _FLAGS = (
     ("--print-config", dict(action="store_true", help="dump the composed config as YAML and exit")),
     ("--skip-xla-flags", dict(action="store_true", help="accepted for the JAX CLI's command lines; no effect")),
     ("--cpu", dict(action="store_true", help="run on the CPU (default: the CUDA device)")),
-    ("--distributed", dict(action="store_true", help="multi-process run: not ported yet")),
+    (
+        "--distributed",
+        dict(
+            action="store_true",
+            help="multi-process run, one process per card, launched by torchrun: the fit "
+            "shards frames, the ik shards clips, rank 0 writes the artifacts",
+        ),
+    ),
 )
 
 
@@ -59,11 +69,11 @@ def main(argv=None) -> int:
     """Entry point: compose config, then run (or just print) it."""
     logging.basicConfig(level=logging.INFO)
     args, overrides = parse_args(argv)
+    device = "cpu" if args.cpu else None
     if args.distributed:
-        raise NotImplementedError(
-            "--distributed is not ported to the PyTorch package yet "
-            "(ROADMAP.md §1, item 6: torch.distributed and the psum'd m-phase)"
-        )
+        from stac_mjx_tpu_torch.parallel.mesh import init_distributed
+
+        init_distributed(device=device)
 
     from stac_mjx_tpu_torch.config import compose_config
 
@@ -73,7 +83,12 @@ def main(argv=None) -> int:
         return 0
 
     base_path = Path(args.base_path).resolve() if args.base_path else Path.cwd()
-    paths = run_pipeline(cfg, base_path=base_path, device="cpu" if args.cpu else "cuda")
+    if args.distributed:
+        from stac_mjx_tpu_torch.parallel.distributed import pod_mesh, run_stac_distributed
+
+        paths = run_stac_distributed(cfg, base_path=base_path, mesh=pod_mesh(device))
+    else:
+        paths = run_pipeline(cfg, base_path=base_path, device=device or "cuda")
     log.info("artifacts: fit=%s ik=%s", *paths)
     return 0
 

@@ -62,11 +62,12 @@ class MujocoConfig:
 @dataclass
 class StacConfig:
     """Pipeline configuration. The fields after ``mujoco`` are the JAX
-    package's extensions; their meaning is documented there. In this port
-    ``spd_impl`` is accepted and has no effect (on the card the flat LM
-    always solves through the CUDA kernel), and ``wire_dtype`` must stay
-    "float32", ``gn_stall_iters`` 0; ``ik_chunk_clips``, ``seq_segment_frames``
-    and ``mesh_axis`` are accepted and not used."""
+    package's extensions; their meaning is documented there, and each has
+    its effect here too, with two exceptions accepted without effect:
+    ``spd_impl`` (on the card the flat LM always solves through the CUDA
+    kernel) and ``mesh_axis`` (no effect in the JAX package either). One
+    automatic value differs: ``ik_chunk_clips=0`` leaves the ik in one batch
+    (``Stac._ik_chunk``)."""
 
     fit_offsets_path: str
     ik_only_path: str

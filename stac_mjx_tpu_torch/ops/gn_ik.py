@@ -56,6 +56,7 @@ class GNIK:
         fk_impl: str = "jump",
         linesearch: bool = False,
         damping_rule: str = "nielsen",
+        stall_iters: int = 0,
     ):
         """damping_rule: "nielsen" (gain-ratio rule, Madsen-Nielsen-Tingleff
         alg. 3.16, with lambda clipped to [1e-7, 1e8] and rejects scaled by
@@ -63,7 +64,10 @@ class GNIK:
         accept). It drives ``solve_batch``; ``solve``'s flat LM always uses
         "fixed". linesearch=True makes ``solve`` the linesearch GN: up to
         max_bad_steps damping increases per iteration, stopping once the
-        accepted step's squared norm is <= tol."""
+        accepted step's squared norm is <= tol. stall_iters > 0 (``solve_batch``
+        only) freezes a frame once its loss has not dropped by more than tol
+        for that many iterations in a row: its q, loss and lambda stop
+        changing, and the loop ends when every frame is frozen."""
         if damping_rule not in ("nielsen", "fixed"):
             raise ValueError(f"unknown damping_rule {damping_rule!r}")
         self.device = torch.device(device)
@@ -76,6 +80,7 @@ class GNIK:
         self.max_bad_steps = max_bad_steps
         self.linesearch = linesearch
         self.damping_rule = damping_rule
+        self.stall_iters = stall_iters
         self.fk = (make_fk_jump if fk_impl == "jump" else make_fk)(topo, device)
 
         nq, njnt = topo.nq, topo.njnt
@@ -215,14 +220,32 @@ class GNIK:
 
     # ------------------------------------------------------------- solves
 
+    @staticmethod
+    def _gradient(J: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+        """J'e (F, nv) of J (F, 3K, nv) and e (F, 3K), as a sum per frame.
+
+        cuBLAS's batched matrix-vector product (``torch.bmm`` with one
+        column) picks its kernel by the batch count, so a frame's J'e, and
+        with it the LM's accept tests and end point, would depend on how
+        many frames share its solve. This sum rounds alike in any batch
+        (checked on the H100 for 1 to 10,000 frames, as ``torch.bmm`` for
+        J'J does), so clips solved in chunks or on other ranks end where
+        one batch ends."""
+        return torch.sum(J * e[..., None], dim=1)
+
     def _dof_mask(self, qs_to_opt: torch.Tensor, dtype) -> torch.Tensor:
         """qpos mask (nq,) or (F, nq) -> dof mask (1, nv) or (F, nv), 0/1."""
         qs = qs_to_opt.to(dtype).reshape(-1, qs_to_opt.shape[-1])
         return (qs @ self._v_from_q.to(dtype).T > 0).to(dtype)
 
-    def _flat_lm(self, params, kp_data, kmask, dof_mask, q0, lb, ub, maxiter, nielsen, lam_in_a):
+    def _flat_lm(self, params, kp_data, kmask, dof_mask, q0, lb, ub, maxiter, nielsen, lam_in_a, stall_n=0):
         """The flat LM loop over a batch of F frames: one FK, Jacobian and SPD
-        solve per iteration, accept iff the loss drops, per-frame damping."""
+        solve per iteration, accept iff the loss drops, per-frame damping.
+
+        stall_n > 0 freezes a frame after stall_n iterations in a row whose
+        gain is <= tol, and ends the loop once no frame is active; that test
+        reads the active mask on the host once per iteration. With 0 the
+        loop runs maxiter iterations and never syncs."""
         F = q0.shape[0]
         dtype = q0.dtype
         lb_c = torch.clamp(lb, -1e10, 1e10)
@@ -242,12 +265,18 @@ class GNIK:
         e = err_of(fkres)
         f_x = torch.sum(e * e, dim=-1)
         lam = torch.full((F,), self.damping_init, dtype=dtype, device=q0.device)
-        for _ in range(maxiter):
+        stall = torch.zeros(F, dtype=torch.int32, device=q0.device) if stall_n else None
+        k = 0
+        while k < maxiter:
+            if stall is not None:
+                active = stall < stall_n
+                if not bool(active.any()):
+                    break
             e = err_of(fkres)
             J = self.jacobian(fkres) * jmask
             Jt = J.transpose(1, 2)
             A = torch.bmm(Jt, J)
-            g = torch.bmm(Jt, e[..., None])[..., 0]
+            g = self._gradient(J, e)
             if lam_in_a:
                 x = spd_solve(A + lam[:, None, None] * eye, g)
             else:
@@ -258,6 +287,8 @@ class GNIK:
             e_new = err_of(fk_new)
             f_new = torch.sum(e_new * e_new, dim=-1)
             ok = f_new < f_x
+            if stall is not None:
+                ok = ok & active
             gain = torch.where(ok, f_x - f_new, torch.zeros_like(f_x))
             q = torch.where(ok[:, None], q_new, q)
             f_x = torch.where(ok, f_new, f_x)
@@ -274,12 +305,18 @@ class GNIK:
             else:
                 lam_acc = lam * self.damping_dec
                 lam_rej = lam * self.damping_inc
-            lam = torch.where(ok, lam_acc, lam_rej)
+            lam_next = torch.where(ok, lam_acc, lam_rej)
+            if stall is None:
+                lam = lam_next
+            else:
+                lam = torch.where(active, lam_next, lam)
+                stall = torch.where(gain > self.tol, 0, stall + 1)
+            k += 1
         return PGResult(
             params=q,
             error=torch.sqrt(f_x),
             value=f_x,
-            iters=torch.full((F,), maxiter, dtype=torch.int32, device=q0.device),
+            iters=torch.full((F,), k, dtype=torch.int32, device=q0.device),
             stepsize=1.0 / (1.0 + lam),
         )
 
@@ -298,8 +335,8 @@ class GNIK:
 
         ``qs_to_opt`` is (nq,), shared by every frame, or (F, nq) per item.
         ``maxiter`` overrides the instance's iteration count for this solve.
-        A fixed-count Python loop with no host sync (the JAX version's
-        while_loop with stall freezing off).
+        With ``stall_iters`` 0 a fixed-count Python loop with no host sync;
+        else the JAX version's stall freezing and early exit (``_flat_lm``).
         """
         dtype = q0.dtype
         return self._flat_lm(
@@ -313,6 +350,7 @@ class GNIK:
             self.maxiter if maxiter is None else int(maxiter),
             nielsen=self.damping_rule == "nielsen",
             lam_in_a=False,
+            stall_n=self.stall_iters,
         )
 
     def solve(
@@ -376,7 +414,7 @@ class GNIK:
             J = self.jacobian(fkres) * jmask
             Jt = J.transpose(1, 2)
             JtJ = torch.bmm(Jt, J)
-            g = torch.bmm(Jt, e[..., None])[..., 0]
+            g = self._gradient(J, e)
 
             def try_step(c, _active=None):
                 ls, lam_c, _, _, _ = c

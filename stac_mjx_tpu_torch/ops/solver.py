@@ -15,6 +15,7 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from stac_mjx_tpu_torch.utils.lanes import while_lanes
 
@@ -256,6 +257,8 @@ def m_opt_closed_form(
     initial_offsets: torch.Tensor,
     is_regularized: torch.Tensor,
     reg_coef: float,
+    n_frames_total: int | None = None,
+    group=None,
 ) -> MOptResult:
     """Exact minimizer of sum_t ||y_t - (p_t + R_t m)||^2 + reg ||D (m - m0)||^2.
 
@@ -264,6 +267,11 @@ def m_opt_closed_form(
 
     p_all (T, K, 3) and R_all (T, K, 3, 3) are the parent-body frames of the
     keypoint sites, y (T, K, 3) the observed keypoints, D = is_regularized.
+
+    With a torch.distributed process ``group`` (the frame-sharded fit) the
+    statistics g, sum ||r||^2 and the frame count are this rank's partial
+    sums, all-reduced (SUM) in one collective, as the JAX version ``psum``s
+    them over its mesh axis. ``n_frames_total`` overrides the frame count T.
     """
     dtype = y.dtype
     mask = is_regularized.to(dtype)
@@ -271,6 +279,12 @@ def m_opt_closed_form(
     g = torch.einsum("tkji,tkj->ki", R_all, resid)
     sq_total = torch.sum(resid * resid)
     n_frames = float(y.shape[0])
+    if group is not None:
+        stats = torch.cat([g.reshape(-1), sq_total[None], g.new_tensor([n_frames])])
+        dist.all_reduce(stats, group=group)
+        g, sq_total, n_frames = stats[:-2].reshape(g.shape), stats[-2], stats[-1]
+    if n_frames_total is not None:
+        n_frames = float(n_frames_total)
 
     anchor = reg_coef * mask
     m_hat = (g + anchor * initial_offsets) / (n_frames + anchor)

@@ -49,15 +49,13 @@ class StacCore:
         "scan" (level scan) or "jump" (pointer doubling). tol: the PG
         stopping tolerance (FTOL); the linesearch GN stops on tol**2.
         gn_iters=0 picks 14 iterations for gn-lm under the nielsen rule and
-        16 otherwise, capped by n_iter_q."""
+        16 otherwise, capped by n_iter_q. gn_stall_iters > 0 freezes a lane
+        of the batched flat LM after that many iterations without a gain
+        above tol**2, and ends the loop once every lane is frozen."""
         if q_solver not in Q_SOLVERS:
             raise ValueError(f"unknown q_solver {q_solver!r}")
         if fk_impl not in ("scan", "jump"):
             raise ValueError(f"unknown fk_impl {fk_impl!r}")
-        if gn_stall_iters:
-            raise NotImplementedError(
-                "gn_stall_iters > 0 (per-lane freezing with early exit) is not ported"
-            )
         self.topo = topo
         self.device = torch.device(device)
         self.q_solver = q_solver
@@ -82,6 +80,7 @@ class StacCore:
                 fk_impl=fk_impl,
                 linesearch=(q_solver == "gn"),
                 damping_rule=gn_damping_rule,
+                stall_iters=gn_stall_iters,
             )
 
     # ------------------------------------------------------------------ q
@@ -130,10 +129,23 @@ class StacCore:
         return res.xpos[:, self._site_body], res.xmat()[:, self._site_body]
 
     def m_opt(
-        self, params, keypoints, q, initial_offsets, is_regularized, reg_coef
+        self,
+        params,
+        keypoints,
+        q,
+        initial_offsets,
+        is_regularized,
+        reg_coef,
+        n_frames_total=None,
+        group=None,
     ) -> MOptResult:
-        """Closed-form offsets from sampled frames: keypoints (T, 3K), q (T, nq)."""
+        """Closed-form offsets from sampled frames: keypoints (T, 3K), q (T, nq).
+        With a process ``group`` the frame statistics are all-reduced over its
+        ranks (the frame-sharded fit; ``m_opt_closed_form``)."""
         T = keypoints.shape[0]
         y = keypoints.reshape(T, len(self.site_idxs), 3)
         p_all, R_all = self.site_frames(params, q)
-        return m_opt_closed_form(p_all, R_all, y, initial_offsets, is_regularized, reg_coef)
+        return m_opt_closed_form(
+            p_all, R_all, y, initial_offsets, is_regularized, reg_coef,
+            n_frames_total=n_frames_total, group=group,
+        )

@@ -8,7 +8,10 @@ chained). ``fit_offsets_program`` runs the root solve, N x (pose pass,
 m-phase) and a final pose pass; ``ik_only_program`` runs each clip's root
 solve, then its pose pass (lockstep: one flat batch over every frame of
 every clip, optionally hierarchical; sequential: the per-clip chains side by
-side, the clips riding the lanes).
+side, the clips riding the lanes). ``fit_offsets_sharded`` is the fit over
+one rank's block of frames with the m-phase statistics all-reduced over a
+torch.distributed group; ``ik_sequential_segment`` is a bounded slice of the
+sequential ik, its warm start carried between calls.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stac_mjx_tpu_torch.models.kinematics import JNT_BALL, JNT_FREE, KinParams
 from stac_mjx_tpu_torch.ops.stac_core import StacCore, make_qs
@@ -255,6 +259,7 @@ def offset_optimization(
     qposes: torch.Tensor,
     is_regularized: torch.Tensor,
     sample_idx: np.ndarray | None = None,
+    group=None,
 ):
     """Closed-form m-phase on sampled frames; writes the offsets into the model.
 
@@ -262,13 +267,30 @@ def offset_optimization(
     ``jax.random.permutation(PRNGKey(0), arange(F), independent=True)``,
     reproduced bit for bit by ``utils.prng``; ``sample_idx`` overrides it.
     The regularization target is the previous offsets.
+
+    With a process ``group`` of more than one rank (the frame-sharded fit;
+    kp_data and qposes are this rank's frames), each rank samples
+    ceil(n_sample_frames / ranks) of its frames with ``PRNGKey(0)`` folded
+    with its rank, and the m-solve's statistics are all-reduced over the
+    group, the frame count being that sample times the ranks: the JAX
+    package's sharded branch, whose sample deliberately differs from the
+    single-program one (a mean estimator either way).
     """
     n_frames = kp_data.shape[0]
+    n_shards = 1 if group is None else dist.get_world_size(group)
+    n_total = None
     if sample_idx is None:
-        sample_idx = prng.permutation(n_frames)[: min(cfg.n_sample_frames, n_frames)]
+        key = prng.key_from_seed(0)
+        n_sample = min(cfg.n_sample_frames, n_frames)
+        if n_shards > 1:
+            n_sample = min(-(-cfg.n_sample_frames // n_shards), n_frames)
+            key = prng.fold_in(key, dist.get_rank(group))
+            n_total = n_sample * n_shards
+        sample_idx = prng.permutation(n_frames, key=key)[:n_sample]
     idx = torch.as_tensor(np.array(sample_idx, np.int64), device=kp_data.device)
     res = core.m_opt(
-        params, kp_data[idx], qposes[idx], offsets_prev, is_regularized, cfg.m_reg_coef
+        params, kp_data[idx], qposes[idx], offsets_prev, is_regularized, cfg.m_reg_coef,
+        n_frames_total=n_total, group=group,
     )
     new_params = params.set_site_pos(res.params, core.site_idxs_t)
     return new_params, res.params, res.error
@@ -286,9 +308,11 @@ def fit_offsets_program(
     ub: torch.Tensor,
     is_regularized: torch.Tensor,
     return_full: bool = True,
+    group=None,
 ) -> dict:
     """The alternating calibration: root solve on frame 0, then n_iters x
-    (pose pass, m-phase), then a final pose pass.
+    (pose pass, m-phase), then a final pose pass. ``group``: see
+    ``fit_offsets_sharded``.
 
     Each pass starts from the LAST frame's pose of the pass before (the
     root solve's pose for the first): the sequential chain's frame 0 starts
@@ -316,7 +340,7 @@ def fit_offsets_program(
         )
         q_warm = qposes if (lockstep and warm_iters is not None) else None
         params, offsets, m_err = offset_optimization(
-            core, cfg, params, kp_data, offsets, qposes, is_regularized
+            core, cfg, params, kp_data, offsets, qposes, is_regularized, group=group
         )
         frame_errors.append(errors)
         m_errors.append(m_err)
@@ -339,6 +363,74 @@ def fit_offsets_program(
     if return_full:
         out.update(xpos=xposes, xquat=xquats, marker_sites=marker_sites)
     return out
+
+
+def fit_offsets_sharded(
+    core: StacCore,
+    cfg: StacConfigStatic,
+    params: KinParams,
+    kp_local: torch.Tensor,
+    lb: torch.Tensor,
+    ub: torch.Tensor,
+    is_regularized: torch.Tensor,
+    group=None,
+) -> dict:
+    """The frame-sharded fit on this rank's block of frames kp_local (F_local, 3K).
+
+    The JAX package's ``fit_offsets_sharded`` schedule on one shard: the root
+    solve on the shard's first frame, the lockstep pose passes on the shard's
+    frames (the warm-pass schedule included), and the m-phase with its
+    statistics all-reduced over the torch.distributed ``group`` (the JAX
+    ``psum``; see ``offset_optimization`` for the sample). Over one rank it
+    is ``fit_offsets_program`` exactly. Returns ``fit_offsets_program``'s
+    dict with the full payload: this rank's frames, the offsets and m-phase
+    errors being the same on every rank. Raises ValueError unless lockstep.
+    """
+    if cfg.pose_mode != "lockstep":
+        raise ValueError(
+            "fit_offsets_sharded requires pose_mode=lockstep: the sequential "
+            "warm-start chain is a cross-frame dependency that cannot shard over frames"
+        )
+    return fit_offsets_program(
+        core, cfg, params, kp_local, lb, ub, is_regularized, return_full=True, group=group
+    )
+
+
+def ik_sequential_segment(
+    core: StacCore,
+    cfg: StacConfigStatic,
+    params: KinParams,
+    kp_seg: torch.Tensor,
+    q_carry: torch.Tensor,
+    offsets: torch.Tensor,
+    lb: torch.Tensor,
+    ub: torch.Tensor,
+    return_full: bool = True,
+    first_segment: bool = False,
+):
+    """One segment of the sequential ik: kp_seg (C, S, 3K) is an S-frame
+    slice of every clip, q_carry (C, nq) each clip's last pose so far
+    (qpos0 for the first segment, which also runs each clip's root solve on
+    its frame 0). The chain is frame by frame, so segments chained through
+    the carry give the one-call ik's poses. Returns (q_carry_out, *outputs)
+    with ``ik_only_program``'s outputs, each (C, S, ...)."""
+    if cfg.pose_mode != "sequential":
+        raise ValueError("segmented ik requires pose_mode=sequential")
+    params = params.set_site_pos(offsets, core.site_idxs_t)
+    C, S = kp_seg.shape[0], kp_seg.shape[1]
+    q = q_carry
+    if first_segment and cfg.do_root_opt and cfg.root_kp_idx >= 0:
+        q = root_optimization(core, cfg, params, kp_seg[:, 0], q, lb, ub)
+    q_last, qposes = _pose_sequential(core, cfg, params, kp_seg, q, lb, ub)
+    qposes = qposes.reshape(C * S, -1)
+    outs = _frame_outputs(core, params, kp_seg.reshape(C * S, -1), qposes)
+
+    def shape(a):
+        return a.reshape(C, S, *a.shape[1:])
+
+    if not return_full:
+        return q_last, shape(qposes), shape(outs[-1])
+    return (q_last, shape(qposes)) + tuple(shape(a) for a in outs)
 
 
 def ik_only_program(

@@ -13,7 +13,10 @@ since jax 0.5):
   returns hash_hi ^ hash_lo;
 - the shuffle runs ceil(3 ln n / ln(2^32 - 1)) rounds of
   ``key, sub = split(key)`` followed by a stable sort of x by
-  ``random_bits(sub)``.
+  ``random_bits(sub)``;
+- ``fold_in(key, data)`` hashes the counter pair (0, data) under the key:
+  the new key is the pair of outputs (the sharded m-phase folds the shard
+  index into ``PRNGKey(0)``).
 """
 
 from __future__ import annotations
@@ -57,9 +60,23 @@ def random_bits32(key: tuple[int, int], n: int) -> np.ndarray:
     return hi ^ lo
 
 
-def permutation(n: int, seed: int = 0) -> np.ndarray:
-    """The indices jax.random.permutation(PRNGKey(seed), arange(n), independent=True) returns."""
-    key = (seed >> 32, seed & 0xFFFFFFFF)
+def key_from_seed(seed: int) -> tuple[int, int]:
+    """``jax.random.PRNGKey(seed)`` as a pair of uint32."""
+    return (seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF
+
+
+def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(key, data)`` for data < 2^32."""
+    with np.errstate(over="ignore"):
+        hi, lo = threefry2x32(key, np.zeros(1, np.uint32), np.array([data], np.uint32))
+    return int(hi[0]), int(lo[0])
+
+
+def permutation(n: int, seed: int = 0, key: tuple[int, int] | None = None) -> np.ndarray:
+    """The indices jax.random.permutation(PRNGKey(seed), arange(n), independent=True)
+    returns; with ``key``, the same under that key (``seed`` is then unused)."""
+    if key is None:
+        key = key_from_seed(seed)
     x = np.arange(n)
     rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
     for _ in range(rounds):

@@ -217,7 +217,7 @@ def test_run_stac_and_cli_default_to_the_card(runs, tmp_path):
     argv = ["--config-path", str(CONFIGS), "--base-path", str(runs["root"])] + OVERRIDES
     with pytest.raises(RuntimeError, match="device='cpu'"):
         cli.main(argv)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="device='cpu'"):  # one process: run_stac_distributed's local path
         cli.main(argv + ["--distributed"])
     assert not list(tmp_path.iterdir())
 

@@ -154,15 +154,17 @@ def test_solve_batch_final_loss_f32(problem):
 
 
 def test_unported_options_raise():
-    """wire_dtype=float16 and gn_stall_iters > 0 stay unported; the defaults
-    are the JAX package's (pg, scan FK, sequential, two root passes); the
-    flat LM's iteration count follows the gn_iters auto rule."""
+    """Every option of the JAX Stac is ported now: gn_stall_iters reaches the
+    batched flat LM, wire_dtype takes float32 or float16 and raises
+    ValueError on anything else, as the JAX package does; the defaults are
+    the JAX package's (pg, scan FK, sequential, two root passes); the flat
+    LM's iteration count follows the gn_iters auto rule."""
     b = bridge.load_bundle()
     fm = bridge.fit_model_from_arrays(b, "cpu")
-    with pytest.raises(NotImplementedError):
-        StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn-lm", gn_stall_iters=3)
-    with pytest.raises(NotImplementedError):
-        Stac(b, {"wire_dtype": "float16"}, device="cpu")
+    assert StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn-lm", gn_stall_iters=3).gnik.stall_iters == 3
+    assert Stac(b, {"wire_dtype": "float16"}, device="cpu")._wire_dtype == "float16"
+    with pytest.raises(ValueError, match="wire_dtype"):
+        Stac(b, {"wire_dtype": "bfloat16"}, device="cpu")
     core = StacCore(fm.topo, fm.site_idxs, "cpu")
     assert (core.q_solver, core.fk_impl, core.gnik) == ("pg", "scan", None)
     sc = Stac(b, {}, device="cpu")._static_cfg
