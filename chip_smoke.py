@@ -68,14 +68,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    most 112 and 34, residuals within 2% of the main phase's), with
    wire_dtype=float16 (the residual of the markers recomputed from the
    upcast qpos within 2e-4 m of the main phase's, fit and ik), the ik in
-   chunks of 8 clips against one batch (qpos within 1e-6; both walls, in
+   chunks of 8 clips against one batch (qpos bitwise equal; both walls, in
    turns; K1 against its plain version on a chunk's fine-pass systems,
-   F = 2,000) and the sequential gn-lm ik on 40 clips of 6 frames in
+   F = 2,000), in chunks of 4 and 5 clips, and in chunks of 1 and 2 clips on
+   the first 10 clips only (qpos bitwise equal to one batch of 40; 34
+   launches per chunk) and the sequential gn-lm ik on 40 clips of 6 frames in
    segments of 2 frames against one call (qpos within 1e-6; K1 against its
    plain version on the flat LM's lanes, F = 40);
 13. profiling: ``utils.profiling.device_trace`` around one main-path ik;
    ``op_table`` must list K1's kernel with 34 launches and ``report()``
-   must hold ``ik_only``.
+   must hold ``ik_only``;
+14. model: ``run_stac`` on the main path's configuration (full payload)
+   over phase 10's recording, artifacts in memory: (a) on firstparty's model
+   config with ROOT_OPTIMIZATION_KEYPOINT TorsoF and one entry dropped from
+   TRUNK_OPTIMIZATION_KEYPOINTS and INDIVIDUAL_PART_OPTIMIZATION, which the
+   checked-in bundle serves with the set-up computed by the Stac (launches
+   112 and 34, residuals and offset error under the bounds; the recorded
+   config's set-up equals the bundle's stored arrays; a config without the
+   root keypoint, the parts and the regularised sites gets none of them);
+   (b) where mujoco imports (else one line says why not): firstparty
+   compiled by the port's builder, equal to the checked-in bundle (bitwise
+   under the mujoco release that wrote it, else to 1e-12), ``run_stac`` on
+   it equal to phase 10 bitwise, then a config no bundle serves (every
+   initial offset moved by a seeded +-3 mm), compiled and run: launches 112
+   and 34, residuals and offset error under the bounds.
 
 Cuts, all of depth (the model keeps its full width, nq 44, nv 37, and the
 solver settings, N_ITER_Q 400 and FTOL 1e-4, stay): the default phase fits
@@ -808,7 +824,7 @@ def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
         f"qvel gyro within {DRIVER_GYRO_ABS} rad/s of cpu f64": bool(gyro.max() <= DRIVER_GYRO_ABS),
         f"qvel gyro within {DRIVER_GYRO_REST_ABS} rad/s where w < 1": rest <= DRIVER_GYRO_REST_ABS,
     })
-    return {"launches": launches["fit"] + launches["ik"]}
+    return {"launches": launches["fit"] + launches["ik"], "conf": cfg.to_dict(), "fit": fit, "ik": ik}
 
 
 
@@ -1042,6 +1058,7 @@ def phase_distributed(spd, device, bundle, main_run, smi: str) -> dict:
 OPT_REL = 0.02
 WIRE_ABS = 2e-4
 CHUNK, SEG_CLIPS, SEG_CLIP, SEG = 8, 40, 6, 2
+CHUNKS, SMALL_CHUNK_CLIPS = (1, 2, 4, 5), 10
 
 
 def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
@@ -1104,6 +1121,25 @@ def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
     checks[f"chunked: K1 at F = {CHUNK * CLIP} within bound"] = (
         c_plain < KERNEL_REL_TOL and c_f64 < KERNEL_REL_TOL and c_fin)
 
+    # Batch invariance (GNIK._gradient, GNIK._row_sum): the ik in chunks of
+    # CHUNKS clips equals one batch bitwise, the root solve then running on
+    # 1 ... 8 clips' first frames. Chunks of 1 and 2 run on the first
+    # SMALL_CHUNK_CLIPS clips only (a chunk costs a whole ik's dispatch).
+    one = runs["one"][0][2]
+    for chunk in CHUNKS:
+        n_clips = SMALL_CHUNK_CLIPS if chunk < 4 else N_IK // CLIP
+        st = Stac(bundle, dict(cfg, ik_chunk_clips=chunk), device=device)
+        spd.KERNEL_LAUNCHES = 0
+        ik, wall = _sync_time(lambda st=st: st.ik_only(kp[: n_clips * CLIP], fit0.offsets))
+        n = spd.KERNEL_LAUNCHES
+        launches["chunked"] += n
+        dq = float(np.abs(ik.qpos - one[: n_clips * CLIP]).max())
+        print(f"options: ik of {n_clips} clips in chunks of {chunk} ({n_clips // chunk} chunks) vs one batch of 40: "
+              f"max |qpos delta| {dq:.3e}, K1 launches {n} ({MAIN_LAUNCHES[1]} per chunk), wall {wall:.3f} s")
+        checks[f"chunks of {chunk}: ik qpos bitwise equal to one batch"] = dq == 0.0
+        checks[f"chunks of {chunk}: K1 launches {MAIN_LAUNCHES[1]} per chunk"] = n == MAIN_LAUNCHES[1] * (n_clips // chunk)
+    checks[f"chunks of {CHUNK}: ik qpos bitwise equal to one batch"] = bool(np.array_equal(runs["chunked"][0][2], one))
+
     seq = dict(THROUGHPUT, pose_mode="sequential", n_frames_per_clip=SEG_CLIP)
     kp_s = kp[: SEG_CLIPS * SEG_CLIP]
     out = {}
@@ -1153,6 +1189,192 @@ def phase_profiling(spd, main_run) -> dict:
     return {"launches": n}
 
 
+# Phase 14: the model. run_stac on the main path's configuration with the
+# full payload, over phase 10's recording (a DANNCE .mat), the artifacts in
+# the in-memory store. (a) firstparty's model config with the keys that shape
+# no compiled array changed: the checked-in bundle serves it and the Stac
+# derives the rest, with no mujoco. (b) where mujoco imports: firstparty
+# compiled by the port's builder (held against the checked-in bundle), run as
+# phase 10 was; then a config no bundle serves, every initial offset moved by
+# a seeded +-MOVED_M per coordinate (MOVED_SEED), compiled and run.
+MODEL_RUN = dict(THROUGHPUT, ik_return_full=True, infer_qvels=False)
+MOVED_M, MOVED_SEED = 3e-3, 14
+# The set-up keys a model config may leave out (configs/model/celegans.yaml
+# has no root keypoint).
+OPTIONAL_SETUP_KEYS = ("ROOT_OPTIMIZATION_KEYPOINT", "INDIVIDUAL_PART_OPTIMIZATION", "SITES_TO_REGULARIZE")
+# Under another mujoco release than the one that compiled the bundles, the
+# built model's float64 arrays are held to this.
+BUILT_ABS = 1e-12
+
+
+def _setup_only_change(model: dict) -> dict:
+    """firstparty's model config with ROOT_OPTIMIZATION_KEYPOINT TorsoF and one
+    entry dropped from TRUNK_OPTIMIZATION_KEYPOINTS and from
+    INDIVIDUAL_PART_OPTIMIZATION."""
+    model = copy.deepcopy(model)
+    model["ROOT_OPTIMIZATION_KEYPOINT"] = "TorsoF"
+    model["TRUNK_OPTIMIZATION_KEYPOINTS"] = model["TRUNK_OPTIMIZATION_KEYPOINTS"][:-1]
+    parts = model["INDIVIDUAL_PART_OPTIMIZATION"]
+    parts.pop(list(parts)[-1])
+    return model
+
+
+@contextlib.contextmanager
+def _no_checked_in_bundles():
+    """While active, bridge.bundle_for_config finds no checked-in bundle, so it
+    compiles the model from its MJCF (``models/builder.bundle_arrays``)."""
+    from stac_mjx_tpu_torch import bridge
+
+    assets = bridge.ASSETS
+    with tempfile.TemporaryDirectory() as empty:
+        bridge.ASSETS = Path(empty)
+        try:
+            yield
+        finally:
+            bridge.ASSETS = assets
+
+
+def _run_stac_in_memory(spd, device, conf: dict, kp_host: np.ndarray) -> dict:
+    """run_stac on the card over kp_host written as a DANNCE .mat, the
+    artifacts in the in-memory store: the fit and ik StacData, K1's launches
+    (fit, ik), the wall and the Stac that run_stac made."""
+    from stac_mjx_tpu_torch import io
+    from stac_mjx_tpu_torch import main as driver
+    from stac_mjx_tpu_torch.config import config_from_dict
+
+    cfg = config_from_dict(copy.deepcopy(conf))
+    times, launches, made = {}, {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _write_mat(cfg, kp_host, tmp / "recording.mat")
+        kp_data, names = io.load_data(cfg, base_path=tmp)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_MemoryArtifacts(io).installed())
+            stack.enter_context(_timed(driver, "make_stac", times, made.append))
+            stack.enter_context(_timed(driver, "fit_phase", times,
+                                       lambda _: launches.__setitem__("fit", spd.KERNEL_LAUNCHES)))
+            spd.KERNEL_LAUNCHES = 0
+            (fit_path, ik_path), run_s = _sync_time(lambda: driver.run_stac(cfg, kp_data, names, base_path=tmp,
+                                                                             device=device))
+            launches["ik"] = spd.KERNEL_LAUNCHES - launches["fit"]
+            (_, fit), (_, ik) = io.load_stac_data(fit_path), io.load_stac_data(ik_path)
+    return {"fit": fit, "ik": ik, "launches": (launches["fit"], launches["ik"]), "run_s": run_s,
+            "model_s": times["make_stac"], "stac": made[0]}
+
+
+def _quality(run: dict, true_off) -> tuple[float, float, float]:
+    fit, ik = run["fit"], run["ik"]
+    return (_resid(fit.marker_sites, fit.kp_data, fit.qpos.shape[0]), _resid(ik.marker_sites, ik.kp_data, ik.qpos.shape[0]),
+            float(np.abs(fit.offsets - true_off).mean()))
+
+
+def _quality_checks(tag: str, run: dict, q) -> dict:
+    return {
+        f"{tag}: fit launched the kernel {MAIN_LAUNCHES[0]} times": run["launches"][0] == MAIN_LAUNCHES[0],
+        f"{tag}: ik launched the kernel {MAIN_LAUNCHES[1]} times": run["launches"][1] == MAIN_LAUNCHES[1],
+        f"{tag}: fit residual < {FIT_RESID_MAX * 1e3} mm": q[0] < FIT_RESID_MAX,
+        f"{tag}: ik residual < {IK_RESID_MAX * 1e3} mm": q[1] < IK_RESID_MAX,
+        f"{tag}: offset error < {OFFSET_ERR_MAX * 1e3} mm": q[2] < OFFSET_ERR_MAX,
+        f"{tag}: qpos finite, full shapes": bool(np.isfinite(run["ik"].qpos).all()) and run["ik"].qpos.shape == (N_IK, 44)
+            and run["fit"].qpos.shape == (N_FIT, 44),
+    }
+
+
+def _quality_line(run: dict, q) -> str:
+    return (f"K1 launches {run['launches'][0]} (fit) + {run['launches'][1]} (ik); fit residual {_fmt_mm(q[0])} mm, "
+            f"ik residual {_fmt_mm(q[1])} mm, offset error vs ground truth {_fmt_mm(q[2])} mm; run_stac "
+            f"{run['run_s']:.3f} s, of which the model {run['model_s']:.3f} s")
+
+
+def phase_model(spd, device, bundle, main_run, driver_run, smi: str) -> dict:
+    """(a) a set-up-only change of firstparty's model config on the checked-in
+    bundle; (b) where mujoco imports, the port's builder: firstparty built
+    against the bundle and run as phase 10, then a config no bundle serves."""
+    import stac_mjx_tpu_torch.models.builder as builder
+    from stac_mjx_tpu_torch import bridge
+    from stac_mjx_tpu_torch.config import config_from_dict
+    from stac_mjx_tpu_torch.models.setup import model_setup
+
+    t_phase = time.perf_counter()
+    try:
+        mujoco = builder.import_mujoco()
+    except ImportError as e:
+        mujoco = None
+        print(f"model: mujoco does not import here ({e!r}): part (b), the port's builder on this host, is left out")
+    kp_host, true_off = main_run["kp"].cpu().numpy(), main_run["true_off"]
+    recorded = json.loads(str(bundle["model_config"]))
+    stac_conf = dict(MODEL_RUN, fit_offsets_path="fit.h5", ik_only_path="ik.h5", data_path="recording.mat",
+                     n_fit_frames=N_FIT, n_frames_per_clip=CLIP, skip_fit_offsets=False, skip_ik_only=False)
+    checks, launches = {}, 0
+
+    # (a) The set-up-only change, and the set-up of the recorded config.
+    stored = model_setup(recorded, bundle)
+    same_setup = all(np.array_equal(np.asarray(v), bundle[k]) for k, v in stored.items())
+    changed = _setup_only_change(recorded)
+    run = _run_stac_in_memory(spd, device, {"model": changed, "stac": stac_conf}, kp_host)
+    launches += sum(run["launches"])
+    st, q = run["stac"], _quality(run, true_off)
+    kp_names = list(changed["KEYPOINT_MODEL_PAIRS"])
+    print(f"model (a): {smi}: ROOT_OPTIMIZATION_KEYPOINT TorsoF (index {st._root_kp_idx}), "
+          f"{int(st._trunk_kps.sum())} trunk keypoints, {len(st._indiv_parts)} parts, on the checked-in bundle; "
+          + _quality_line(run, q))
+    checks.update(_quality_checks("(a)", run, q))
+    checks["(a): the recorded config's set-up equals the bundle's stored arrays"] = same_setup
+    checks["(a): the Stac's set-up is the changed config's"] = (
+        st._root_kp_idx == kp_names.index("TorsoF") and int(st._trunk_kps.sum()) == len(
+            changed["TRUNK_OPTIMIZATION_KEYPOINTS"]) and len(st._indiv_parts) == len(changed["INDIVIDUAL_PART_OPTIMIZATION"]))
+    # Keys left out of the config stay out (as in the JAX Stac), not filled
+    # from the bundle's recorded config: no root solve, parts or regularised sites.
+    from stac_mjx_tpu_torch.main import make_stac
+
+    left_out = {k: v for k, v in recorded.items() if k not in OPTIONAL_SETUP_KEYS}
+    sd = make_stac(config_from_dict({"model": left_out, "stac": stac_conf}), kp_names, device=device)
+    print(f"model (a): without {', '.join(OPTIONAL_SETUP_KEYS)}: root keypoint index {sd._root_kp_idx}, "
+          f"{len(sd._indiv_parts)} parts, {int(sd._is_regularized.sum().item())} regularised coordinates")
+    checks["(a): keys left out of the model config stay out"] = (
+        sd._root_kp_idx == -1 and not sd._indiv_parts and not bool(sd._is_regularized.any())
+        and not sd._static_cfg.do_root_opt)
+
+    # (b) The port's builder on this host.
+    if mujoco is not None:
+        cfg = config_from_dict({"model": copy.deepcopy(recorded), "stac": stac_conf})
+        built, build_s = _sync_time(lambda: builder.bundle_arrays(cfg, ROOT))
+        exact = sorted(built) == sorted(bundle) and all(
+            built[k].dtype == bundle[k].dtype and np.array_equal(built[k], bundle[k]) for k in bundle)
+        worst = max(float(np.abs(built[k] - bundle[k]).max()) for k in bridge.KINPARAMS_FIELDS + ("jnt_range",))
+        same_release = mujoco.__version__ == bridge.BUNDLE_MUJOCO_VERSION
+        print(f"model (b): mujoco {mujoco.__version__} (the bundles': {bridge.BUNDLE_MUJOCO_VERSION}); firstparty "
+              f"built from models/firstparty.xml in {build_s:.3f} s: {'bitwise equal to' if exact else 'differs from'} "
+              f"the checked-in bundle, largest difference {worst:.3e}")
+        checks["(b): the built firstparty equals the checked-in bundle" + (
+            "" if same_release else f" to {BUILT_ABS}")] = exact if same_release else worst <= BUILT_ABS
+        with _no_checked_in_bundles():
+            again = _run_stac_in_memory(spd, device, driver_run["conf"], kp_host)
+            rng = np.random.default_rng(MOVED_SEED)
+            moved = copy.deepcopy(recorded)
+            moved["KEYPOINT_INITIAL_OFFSETS"] = {
+                k: [float(x) for x in np.add(v, rng.uniform(-MOVED_M, MOVED_M, 3))]
+                for k, v in recorded["KEYPOINT_INITIAL_OFFSETS"].items()}
+            unserved = _run_stac_in_memory(spd, device, {"model": moved, "stac": stac_conf}, kp_host)
+        launches += sum(again["launches"]) + sum(unserved["launches"])
+        fit0, ik0 = driver_run["fit"], driver_run["ik"]
+        d = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in (
+            (again["fit"].qpos, fit0.qpos), (again["fit"].offsets, fit0.offsets), (again["ik"].qpos, ik0.qpos),
+            (again["ik"].qvel, ik0.qvel)))
+        print(f"model (b): run_stac on the built firstparty as phase 10: max |delta| of fit qpos, offsets, ik qpos "
+              f"and qvel against phase 10 {d:.3e}; K1 launches {again['launches']}")
+        checks["(b): run_stac on the built model equals phase 10" + ("" if exact else " to 1e-6")] = (
+            d == 0.0 if exact else d <= 1e-6)
+        checks[f"(b): K1 launches {MAIN_LAUNCHES} on the built model"] = again["launches"] == MAIN_LAUNCHES
+        q = _quality(unserved, true_off)
+        print(f"model (b): initial offsets moved by +-{MOVED_M * 1e3:g} mm (seed {MOVED_SEED}), no bundle serves it, "
+              f"compiled on this host: " + _quality_line(unserved, q))
+        checks.update(_quality_checks("(b) moved offsets", unserved, q))
+    print(f"model: phase wall {time.perf_counter() - t_phase:.2f} s")
+    _check_all("model", checks)
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
@@ -1194,7 +1416,8 @@ def main() -> int:
     dist_run = phase_distributed(spd, device, bundle, main_run, smi)
     opts = phase_options(spd, device, bundle, main_run, smi)["launches"]
     prof = phase_profiling(spd, main_run)
-    print(f"phases 11-13 (distributed, options, profiling) in {time.perf_counter() - t_new:.1f} s")
+    model = phase_model(spd, device, bundle, main_run, drv, smi)
+    print(f"phases 11-14 (distributed, options, profiling, model) in {time.perf_counter() - t_new:.1f} s")
 
     # launches: every path's run (the rank processes' counts included). ms, plain_ms and
     # library_ms: time per call on the stream, as since the first version of
@@ -1202,7 +1425,7 @@ def main() -> int:
     by_path = {"main": main_run["launches"], "parts": parts["launches"], "driver": drv["launches"],
                "distributed_1": dist_run["launches"], "distributed_2": dist_run["launches_2"],
                "stall": opts["stall"], "wire16": opts["wire16"], "chunked": opts["chunked"],
-               "segmented": opts["segmented"], "profiling": prof["launches"]}
+               "segmented": opts["segmented"], "profiling": prof["launches"], "model": model["launches"]}
     t = times[(37, 10_000)]
     print(json.dumps({"kernels": [{
         "name": "spd_chol_solve_f32",

@@ -1,21 +1,24 @@
-"""Carry the fitting model across from the JAX package as plain numpy arrays.
+"""Carry the fitting model to the PyTorch port as plain numpy arrays.
 
-The machine with the GPU has neither jax nor (perhaps) mujoco, so the model
-the JAX package compiles from MJCF on the host is frozen into a bundle of
-numpy arrays (``assets/firstparty_bundle.npz`` and ``assets/synth_data_bundle.npz``,
-written by ``scripts/export_torch_bundle.py``). The functions here turn such arrays,
-whether loaded from the bundle or taken from live JAX objects with
-``np.asarray``, into the port's topology, parameters and fit model. The tests
-use the same functions to feed both packages identical parameters.
+The machine with the GPU has neither jax nor mujoco, so a compiled fitting
+model travels as a bundle of numpy arrays (``assets/firstparty_bundle.npz``
+and ``assets/synth_data_bundle.npz``, written by
+``scripts/export_torch_bundle.py``, or by ``models/builder.bundle_arrays``
+where mujoco imports). The functions here turn such arrays, whether loaded
+from a bundle, built by the port's builder or taken from live JAX objects
+with ``np.asarray``, into the port's topology, parameters and fit model, and
+find the model of a config (``bundle_for_config``). The tests use the same
+functions to feed both packages identical parameters.
 
 Bundle keys: ``TOPOLOGY_FIELDS`` and ``KINPARAMS_FIELDS`` (the
 ``KinTopology`` constructor and ``KinParams`` arrays), ``site_idxs``,
-``is_regularized``, ``lb``/``ub``/``part_names`` (from the JAX package's
-``_align_joint_dims``, quirks included), ``jnt_range``, ``indiv_parts``,
-``trunk_kps``, ``root_kp_idx``, ``kp_names``, ``timestep``, the model
-scalars in ``MODEL_SCALARS`` and ``model_config``: the composed ``cfg.model``
-the bundle was exported from, as a JSON string, by which
-``bundle_for_config`` finds the bundle of a config.
+``is_regularized``, ``lb``/``ub``/``part_names`` (``_align_joint_dims``,
+quirks included), ``jnt_range``, ``indiv_parts``, ``trunk_kps``,
+``root_kp_idx``, ``kp_names``, ``timestep``, the model scalars in
+``MODEL_SCALARS`` and ``model_config``: the composed ``cfg.model`` the
+bundle was made from, as a JSON string. The ``Stac`` derives the set-up
+arrays (``lb`` ... ``is_regularized``) from its model config
+(``models/setup.py``); the bundle keeps them for the record.
 """
 
 from __future__ import annotations
@@ -50,8 +53,12 @@ KINPARAMS_FIELDS = (
     "body_pos", "body_quat", "jnt_axis", "jnt_pos", "qpos0", "site_pos", "site_quat",
 )
 MODEL_SCALARS = ("FTOL", "N_ITERS", "N_ITER_Q", "N_SAMPLE_FRAMES", "M_REG_COEF")
-# Model keys that only the data loader reads: a bundle serves any value.
-LOADER_KEYS = ("MOCAP_SCALE_FACTOR", "KP_NAMES", "KP_NAMES_LABEL3D_PATH")
+# The model keys that shape the compiled arrays: a bundle serves every config
+# that equals its recorded one on these (the Stac applies the other keys).
+COMPILED_KEYS = ("MJCF_PATH", "KEYPOINT_MODEL_PAIRS", "KEYPOINT_INITIAL_OFFSETS", "SCALE_FACTOR", "MARKER_SIZE")
+# The mujoco release that compiled the checked-in bundles: the port's builder
+# reproduces them bitwise under it.
+BUNDLE_MUJOCO_VERSION = "3.10.0"
 
 _NAME_FIELDS = ("body_names", "jnt_names", "site_names")
 
@@ -121,44 +128,59 @@ def fit_model_from_arrays(
     )
 
 
-def _model_key_differences(recorded: Mapping, model: Mapping) -> list[str]:
-    """The keys that shape the fitting model and differ between two model
-    configs (absent keys take the schema's defaults). MJCF_PATH is compared
-    by file name, so a model named by another path to the same file matches."""
-    from stac_mjx_tpu_torch.config import ModelConfig
+def _compiled_view(model: Mapping) -> dict:
+    """A model config's COMPILED_KEYS as the builder reads them: the MJCF by
+    file name, the keypoint pairs in order, each keypoint's initial offset
+    as floats, the scales as floats (absent keys take the schema's defaults)."""
+    from stac_mjx_tpu_torch.models.builder import parse_pos
 
-    diffs = []
-    for f in dataclasses.fields(ModelConfig):
-        if f.name in MODEL_SCALARS or f.name in LOADER_KEYS:
-            continue
-        if f.default is not dataclasses.MISSING:
-            default = f.default
-        else:
-            default = None if f.default_factory is dataclasses.MISSING else f.default_factory()
-        a, b = recorded.get(f.name, default), model.get(f.name, default)
-        if f.name == "MJCF_PATH":
-            a, b = Path(str(a)).name, Path(str(b)).name
-        if a != b:
-            diffs.append(f.name)
-    return diffs
+    pairs = list(dict(model.get("KEYPOINT_MODEL_PAIRS") or {}).items())
+    offsets = dict(model.get("KEYPOINT_INITIAL_OFFSETS") or {})
+    return {
+        "MJCF_PATH": Path(str(model.get("MJCF_PATH"))).name,
+        "KEYPOINT_MODEL_PAIRS": pairs,
+        "KEYPOINT_INITIAL_OFFSETS": [parse_pos(offsets[k]) if k in offsets else None for k, _ in pairs],
+        "SCALE_FACTOR": float(model.get("SCALE_FACTOR", 1.0)),
+        "MARKER_SIZE": float(model.get("MARKER_SIZE", 0.005)),
+    }
 
 
-def bundle_for_config(cfg) -> dict[str, np.ndarray]:
-    """The checked-in bundle exported from ``cfg.model``: the one whose
-    recorded model config equals it on every key that shapes the fitting
-    model. MODEL_SCALARS may differ (``Stac``'s ``model=`` overrides carry
-    them), and so may the loader's keys (LOADER_KEYS). Raises ValueError
-    when no bundle matches."""
+def model_key_differences(recorded: Mapping, model: Mapping) -> list[str]:
+    """The COMPILED_KEYS on which two model configs differ."""
+    a, b = _compiled_view(recorded), _compiled_view(model)
+    return [k for k in COMPILED_KEYS if a[k] != b[k]]
+
+
+def bundle_for_config(cfg, base_path: str | Path | None = None) -> dict[str, np.ndarray]:
+    """The model of a composed config, as bundle arrays.
+
+    A checked-in bundle whose recorded model config equals ``cfg.model`` on
+    COMPILED_KEYS serves it; the ``Stac`` derives the rest from the config.
+    Otherwise the model is compiled from its MJCF (base_path / MJCF_PATH,
+    then ``utils.assets.resolve_asset``) by ``models/builder.bundle_arrays``,
+    which needs mujoco. Raises ValueError, naming what is missing and how to
+    export a bundle, when the MJCF is not found or mujoco does not import."""
+    from stac_mjx_tpu_torch.models import builder
+
     model = cfg.model.to_dict()
     seen = []
     for path in sorted(ASSETS.glob("*_bundle.npz")):
         bundle = load_bundle(path)
-        diffs = _model_key_differences(json.loads(str(bundle["model_config"])), model)
+        diffs = model_key_differences(json.loads(str(bundle["model_config"])), model)
         if not diffs:
             return bundle
         seen.append(f"{path.name} differs in {', '.join(diffs)}")
-    raise ValueError(
-        "no model bundle matches this model config (" + "; ".join(seen) + "). Export one on a host "
-        "with jax and mujoco: python scripts/export_torch_bundle.py --model <configs/model name> "
-        "--stac <configs/stac name> --out stac_mjx_tpu_torch/assets/<name>_bundle.npz"
+    why = "no checked-in model bundle matches this model config (" + "; ".join(seen) + ")"
+    export = (
+        "; compile a bundle on a host that has the MJCF and mujoco, and put it in stac_mjx_tpu_torch/assets/: "
+        "np.savez(bridge.bundle_path(<name>), **models.builder.bundle_arrays(cfg)), or, where jax imports too, "
+        "python scripts/export_torch_bundle.py --model <configs/model name> --stac <configs/stac name>"
     )
+    xml = builder.resolve_mjcf(model, base_path)
+    if not xml.exists():
+        raise ValueError(f"{why}, and its MJCF {model['MJCF_PATH']!r} was not found (tried {xml}){export}")
+    try:
+        builder.import_mujoco()
+    except ImportError as e:
+        raise ValueError(f"{why}, and compiling it from {xml} needs mujoco, which does not import here ({e}){export}") from e
+    return builder.bundle_arrays(cfg, base_path)

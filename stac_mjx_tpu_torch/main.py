@@ -6,9 +6,9 @@ phase-granular resume contract: the fit h5 is the checkpoint, and the ik
 always reads its offsets back from that file, never from memory. The ik also
 takes ``continuous`` and the config it writes from the fit h5's config, while
 the clip length comes from the caller's. The fitting model is the checked-in
-bundle that matches ``cfg.model`` (``bridge.bundle_for_config``), since the
-port compiles no MJCF. The JAX driver's XLA flags (its persistent compile
-cache) have no counterpart here.
+bundle that serves ``cfg.model``, or else its MJCF compiled by the port's
+builder where mujoco imports (``bridge.bundle_for_config``). The JAX driver's
+XLA flags (its persistent compile cache) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -48,19 +48,19 @@ def _require_kp_columns(kp_data, kp_names) -> None:
         )
 
 
-def make_stac(cfg, kp_names, device="cuda", dtype=torch.float32) -> Stac:
-    """The ``Stac`` of a composed config: its model's bundle, the config's
-    MODEL_SCALARS as overrides, and its stac keys. The keypoint names must be
-    the bundle's, in its order (``load_data`` returns them so)."""
-    bundle = bridge.bundle_for_config(cfg)
-    names = [str(s) for s in bundle["kp_names"]]
+def make_stac(cfg, kp_names, device="cuda", dtype=torch.float32, base_path: Path | None = None) -> Stac:
+    """The ``Stac`` of a composed config: its model (``bridge.bundle_for_config``:
+    a checked-in bundle, or the MJCF under ``base_path`` compiled), the
+    config's model keys and its stac keys. The keypoint names must be the
+    model's, in its order (``load_data`` returns them so)."""
+    bundle = bridge.bundle_for_config(cfg, base_path)
+    names = list(cfg.model.KEYPOINT_MODEL_PAIRS.keys())
     if list(kp_names) != names:
         raise ValueError(
             f"keypoint names {list(kp_names)} differ from the model bundle's {names}; "
             f"pass the names load_data returns (KEYPOINT_MODEL_PAIRS order)"
         )
-    model = {k: cfg.model[k] for k in bridge.MODEL_SCALARS if k in cfg.model}
-    return Stac(bundle, cfg.stac.to_dict(), model=model, device=device, dtype=dtype)
+    return Stac(bundle, cfg.stac.to_dict(), model_config=cfg.model.to_dict(), device=device, dtype=dtype)
 
 
 def fit_phase(stac: Stac, cfg, kp_data, out_path: Path) -> Path:
@@ -127,7 +127,7 @@ def run_stac(cfg, kp_data, kp_names, base_path: Path | None = None, device="cuda
 
     fit_path = base_path / cfg.stac.fit_offsets_path
     ik_path = base_path / cfg.stac.ik_only_path
-    stac = make_stac(cfg, kp_names, device=device, dtype=dtype)
+    stac = make_stac(cfg, kp_names, device=device, dtype=dtype, base_path=base_path)
 
     if cfg.stac.skip_fit_offsets:
         log.info(

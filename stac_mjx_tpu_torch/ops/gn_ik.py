@@ -233,6 +233,20 @@ class GNIK:
         one batch ends."""
         return torch.sum(J * e[..., None], dim=1)
 
+    @staticmethod
+    def _row_sum(x: torch.Tensor) -> torch.Tensor:
+        """Sum over the last dim of x (F, n), in an order that no batch size changes.
+
+        ``torch.sum(x, dim=-1)`` on a card picks its block shape by the row
+        count, so its order, and with it the LM's loss, predicted gain and
+        step norm, would depend on how many frames share the solve. Here each
+        row is broadcast to 32 columns (a stride-0 view) and reduced over the
+        middle dim, as ``_gradient`` reduces: one launch, and every row summed
+        in the same order in any batch (measured on the H100 for 1 to 10,000
+        rows, ``scripts/check_batch_invariance.py``; on the CPU it rounds as
+        ``torch.sum``)."""
+        return x[..., None].expand(*x.shape, 32).sum(-2)[..., 0]
+
     def _dof_mask(self, qs_to_opt: torch.Tensor, dtype) -> torch.Tensor:
         """qpos mask (nq,) or (F, nq) -> dof mask (1, nv) or (F, nv), 0/1."""
         qs = qs_to_opt.to(dtype).reshape(-1, qs_to_opt.shape[-1])
@@ -263,7 +277,7 @@ class GNIK:
         q = project(q0)
         fkres = self.fk(params, q)
         e = err_of(fkres)
-        f_x = torch.sum(e * e, dim=-1)
+        f_x = self._row_sum(e * e)
         lam = torch.full((F,), self.damping_init, dtype=dtype, device=q0.device)
         stall = torch.zeros(F, dtype=torch.int32, device=q0.device) if stall_n else None
         k = 0
@@ -285,7 +299,7 @@ class GNIK:
             q_new = project(self.retract(q, delta))
             fk_new = self.fk(params, q_new)
             e_new = err_of(fk_new)
-            f_new = torch.sum(e_new * e_new, dim=-1)
+            f_new = self._row_sum(e_new * e_new)
             ok = f_new < f_x
             if stall is not None:
                 ok = ok & active
@@ -297,7 +311,7 @@ class GNIK:
                 # rho = actual / predicted reduction of the unprojected step,
                 # pred = delta.(lam delta - g); f_x is e'e = 2F, and the
                 # missing 1/2 cancels between gain and pred.
-                pred = torch.sum(delta * (lam[:, None] * delta - g), dim=-1)
+                pred = self._row_sum(delta * (lam[:, None] * delta - g))
                 rho = gain / torch.clamp(pred, min=1e-30)
                 shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
                 lam_acc = torch.clamp(lam * shrink, 1e-7, 1e8)
@@ -405,7 +419,7 @@ class GNIK:
 
         def loss_of(q):
             e = err_of(self.fk(params, q))
-            return torch.sum(e * e, dim=-1)
+            return self._row_sum(e * e)
 
         def body(s, active):
             k, q, lam, step2, f_x = s
@@ -436,7 +450,7 @@ class GNIK:
             f_next = torch.where(accepted, f_new, f_x)
             lam_next = torch.where(accepted, lam_used * self.damping_dec, lam_used)
             d = q_next - q
-            step2 = torch.where(accepted, torch.sum(d * d, dim=-1), torch.zeros_like(f_x))
+            step2 = torch.where(accepted, self._row_sum(d * d), torch.zeros_like(f_x))
             return k + 1, q_next, lam_next, step2, f_next
 
         def cond(s):

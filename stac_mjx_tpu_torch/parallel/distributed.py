@@ -164,7 +164,7 @@ def run_stac_distributed(cfg, base_path=None, mesh: ClipGroup | None = None, dty
 
     kp_data, kp_names = io.load_data(cfg, base_path=base_path)
     kp_data = np.asarray(kp_data)
-    stac = make_stac(cfg, kp_names, device=resolve_device(mesh.device), dtype=dtype)
+    stac = make_stac(cfg, kp_names, device=resolve_device(mesh.device), dtype=dtype, base_path=base_path)
 
     fit_path = base_path / cfg.stac.fit_offsets_path
     ik_path = base_path / cfg.stac.ik_only_path

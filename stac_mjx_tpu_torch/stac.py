@@ -3,10 +3,16 @@ pose mode, q_solver, fk_impl and part schedule of the JAX package, its
 float16 wire, segmented sequential runs, chunked ik and the multi-process
 entry points).
 
-Built from a model bundle (``bridge.load_bundle()``) plus a stac config with
-the keys of ``configs/stac/*.yaml`` given as a mapping; model scalars
-(N_ITERS, N_SAMPLE_FRAMES, ...) come from the bundle and may be overridden.
-``main.run_stac`` builds it from a composed config and writes the artifacts.
+Built from a compiled model's arrays (a bundle: ``bridge.load_bundle()``,
+or ``bridge.bundle_for_config``, which compiles the MJCF where no checked-in
+bundle serves the config) plus a stac config with the keys of
+``configs/stac/*.yaml`` given as a mapping. The model config is the one
+given whole (``model_config``), else the bundle's recorded one, with any
+model scalars in ``model`` over it; the set-up that depends on it
+alone (bounds, part and trunk masks, root keypoint, regularisation mask) is
+computed here (``models/setup.py``), so the card runs any change of those
+keys without mujoco. ``main.run_stac`` builds it from a composed config and
+writes the artifacts.
 
 Execution differs from the JAX package in one way: its ``Stac.ik_only``
 shards clips over every chip its one process sees, while here ``ik_only``
@@ -18,6 +24,7 @@ Clips are independent, so the results are the same.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Mapping
 
 import numpy as np
@@ -25,9 +32,10 @@ import torch
 import torch.distributed as dist
 
 from stac_mjx_tpu_torch import pipeline
-from stac_mjx_tpu_torch.bridge import MODEL_SCALARS, fit_model_from_arrays, resolve_device
+from stac_mjx_tpu_torch.bridge import MODEL_SCALARS, fit_model_from_arrays, model_key_differences, resolve_device
 from stac_mjx_tpu_torch.io import StacData  # re-exported: the output container lives in io
 from stac_mjx_tpu_torch.models.kinematics import JNT_FREE, JNT_SLIDE
+from stac_mjx_tpu_torch.models.setup import model_setup
 from stac_mjx_tpu_torch.ops.stac_core import StacCore
 from stac_mjx_tpu_torch.utils import profiling
 from stac_mjx_tpu_torch.utils.batching import batch_kp_data
@@ -58,13 +66,29 @@ class Stac:
         model: Mapping | None = None,
         device: torch.device | str = "cuda",
         dtype: torch.dtype = torch.float32,
+        *,
+        model_config: Mapping | None = None,
     ):
-        """bundle: arrays from ``bridge.load_bundle``; stac: stac config keys
-        (a mapping or a dataclass); model: overrides of the bundle's MODEL_SCALARS.
-        Runs on the card unless ``device`` says otherwise; raises if there is none."""
+        """bundle: the compiled model's arrays (``bridge.load_bundle`` or
+        ``bridge.bundle_for_config``); stac: stac config keys (a mapping or a
+        dataclass); model_config: a whole model config (a composed
+        ``cfg.model``, as ``main.make_stac`` passes), used as the JAX Stac
+        uses its ``cfg.model``: a key it leaves out stays out. Its
+        ``bridge.COMPILED_KEYS`` must equal the bundle's recorded
+        ``model_config``, which is the default. model: ``bridge.MODEL_SCALARS``
+        laid over that (e.g. fewer N_ITERS). Runs on the card unless
+        ``device`` says otherwise; raises if there is none."""
         self.stac_cfg = dataclasses.asdict(stac) if dataclasses.is_dataclass(stac) else dict(stac)
-        self.model_cfg = {k: np.asarray(bundle[k]).item() for k in MODEL_SCALARS}
-        self.model_cfg.update(model or {})
+        others = sorted(set(model or {}) - set(MODEL_SCALARS))
+        if others:
+            raise ValueError(f"model keys {others} are not model scalars {MODEL_SCALARS}: pass the whole "
+                             f"model config as model_config")
+        recorded = json.loads(str(bundle["model_config"]))
+        self.model_cfg = dict(recorded if model_config is None else model_config, **(model or {}))
+        diffs = model_key_differences(recorded, self.model_cfg)
+        if diffs:
+            raise ValueError(f"model keys {diffs} differ from the bundle's: take the model from "
+                             f"bridge.bundle_for_config, which compiles it")
         self.device = resolve_device(device)
         self.dtype = dtype
         get = self.stac_cfg.get
@@ -74,15 +98,17 @@ class Stac:
         self.params = fm.params
         self.timestep = fm.timestep
         self._body_site_idxs = fm.site_idxs
-        self._is_regularized = torch.as_tensor(fm.is_regularized, device=self.device).to(dtype)
         self._body_names = fm.topo.body_names
-        self._kp_names = [str(s) for s in bundle["kp_names"]]
-        self._part_names = [str(s) for s in bundle["part_names"]]
-        self._root_kp_idx = int(bundle["root_kp_idx"])
-        self._lb = torch.as_tensor(bundle["lb"], device=self.device).to(dtype)
-        self._ub = torch.as_tensor(bundle["ub"], device=self.device).to(dtype)
-        self._indiv_parts = [np.asarray(m, bool) for m in bundle["indiv_parts"]]
-        self._trunk_kps = np.asarray(bundle["trunk_kps"], bool)
+        # The model half of the set-up, from the model config (models/setup.py).
+        setup = model_setup(self.model_cfg, bundle)
+        self._kp_names = setup["kp_names"]
+        self._part_names = setup["part_names"]
+        self._root_kp_idx = setup["root_kp_idx"]
+        self._lb = torch.as_tensor(setup["lb"], device=self.device).to(dtype)
+        self._ub = torch.as_tensor(setup["ub"], device=self.device).to(dtype)
+        self._indiv_parts = list(setup["indiv_parts"])
+        self._trunk_kps = setup["trunk_kps"]
+        self._is_regularized = torch.as_tensor(setup["is_regularized"], device=self.device).to(dtype)
 
         root_type = int(self.topo.jnt_type[0]) if self.topo.njnt else -1
         self._freejoint = root_type == JNT_FREE
@@ -521,3 +547,11 @@ class Stac:
             names_xpos=self._body_names,
             kp_names=self._kp_names,
         )
+
+    # ------------------------------------------------------------ render
+
+    def render(self, *args, **kwargs):
+        """Render fitted results with mujoco's renderer on the host (``viz.render_stac``)."""
+        from stac_mjx_tpu_torch.viz import render_stac
+
+        return render_stac(self, *args, **kwargs)

@@ -1,10 +1,11 @@
 """What carries the model and the data across to the PyTorch port: the
 checked-in bundle, the numpy twin of JAX's permutation, the port's
-recording generator, the bundle's lookup by model config, and the port's
-independence from jax and mujoco (and from yaml, h5py and scipy outside
-the driver's I/O)."""
+recording generator, the model's lookup by model config (a bundle, or the
+port's builder), and the port's independence from jax, and from mujoco,
+yaml, h5py and scipy outside the functions that need them."""
 
 import importlib.util
+import json
 import re
 import subprocess
 import sys
@@ -112,6 +113,18 @@ try:
     raise AssertionError("run_stac wrote an artifact without h5py")
 except ImportError as e:
     assert "h5py" in str(e) and fits == [1], (e, fits)
+
+# A config that changes only keys that shape no compiled array: the
+# checked-in bundle serves it, the Stac derives the rest, no mujoco needed.
+from stac_mjx_tpu_torch.bridge import bundle_for_config
+cfg.model.ROOT_OPTIMIZATION_KEYPOINT = "TorsoF"
+cfg.model.TRUNK_OPTIMIZATION_KEYPOINTS = ["TorsoF", "TorsoM", "PelvisTop", "HipL"]
+cfg.model.INDIVIDUAL_PART_OPTIMIZATION = {k: v for k, v in cfg.model.INDIVIDUAL_PART_OPTIMIZATION.items() if k != "tail"}
+cfg.model.SITES_TO_REGULARIZE = ["Jaw"]
+setup = main.make_stac(cfg, [str(n) for n in b["kp_names"]], device="cpu")
+assert bundle_for_config(cfg) is not None and setup._root_kp_idx == 4 and len(setup._indiv_parts) == 5
+assert int(setup._trunk_kps.sum()) == 4 and float(setup._is_regularized.sum()) == 3.0
+assert np.isfinite(setup.fit_offsets(kp[:4]).qpos).all()
 print("NO_HOST_DEPS_OK")
 """
 
@@ -140,12 +153,52 @@ def test_bundle_for_config_finds_the_exported_bundle(model, stac):
             np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
-def test_bundle_for_config_rejects_another_model():
-    base = ["model=firstparty", "stac=firstparty"]
-    for extra in (["model.KEYPOINT_INITIAL_OFFSETS.Snout=[0.03, 0.0, 0.0]"], ["model.SCALE_FACTOR=1.0"],
-                  ["model.MJCF_PATH=models/other.xml"]):
-        with pytest.raises(ValueError, match="no model bundle matches.*export_torch_bundle.py"):
-            bridge.bundle_for_config(compose_config(REPO / "configs", overrides=base + extra))
+# Configs that no checked-in bundle serves: another uniform scale, or the
+# Snout's initial offset moved; and an MJCF that does not exist.
+UNSERVED = {"scale": ["model.SCALE_FACTOR=1.0"], "moved_offsets": ["model.KEYPOINT_INITIAL_OFFSETS.Snout=[0.03, 0.0, 0.0]"],
+            "missing_mjcf": ["model.MJCF_PATH=models/other.xml"]}
+_WITHOUT_MUJOCO = r"""
+import sys
+sys.modules["mujoco"] = None  # any import of mujoco now raises ImportError
+from stac_mjx_tpu_torch.bridge import bundle_for_config
+from stac_mjx_tpu_torch.config import compose_config
+try:
+    bundle_for_config(compose_config("configs", overrides=["model=firstparty", "stac=firstparty"] + sys.argv[1:]))
+except ValueError as e:
+    print("VALUE_ERROR", e)
+"""
+
+
+@pytest.mark.parametrize(
+    "case,mujoco", [("scale", False), ("moved_offsets", False), ("missing_mjcf", True), ("scale", True),
+                    ("moved_offsets", True)],
+)
+def test_bundle_for_config_rejects_another_model(case, mujoco):
+    """No checked-in bundle serves these configs. Without mujoco (the card's
+    machine) bundle_for_config raises a ValueError that names mujoco and the
+    export route, and a missing MJCF raises with mujoco too; with mujoco, the
+    others build (``models/builder.bundle_arrays``) and no other model is
+    swapped in."""
+    overrides = ["model=firstparty", "stac=firstparty"] + UNSERVED[case]
+    if not mujoco:
+        proc = subprocess.run([sys.executable, "-c", _WITHOUT_MUJOCO, *UNSERVED[case]], cwd=REPO,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        assert re.search(r"VALUE_ERROR no checked-in model bundle matches.*needs mujoco, which does not "
+                         r"import here.*export_torch_bundle.py", proc.stdout), proc.stdout
+        return
+    cfg = compose_config(REPO / "configs", overrides=overrides)
+    if case == "missing_mjcf":
+        with pytest.raises(ValueError, match="MJCF 'models/other.xml' was not found.*export_torch_bundle.py"):
+            bridge.bundle_for_config(cfg, REPO)
+        return
+    built = bridge.bundle_for_config(cfg, REPO)
+    checked_in = bridge.load_bundle()
+    assert json.loads(str(built["model_config"])) == cfg.model.to_dict()
+    assert sorted(built) == sorted(checked_in)
+    differs = [k for k in bridge.KINPARAMS_FIELDS if not np.array_equal(built[k], checked_in[k])]
+    assert differs == (["body_pos"] if case == "scale" else ["site_pos"])
+    np.testing.assert_array_equal(built["jnt_type"], checked_in["jnt_type"])
 
 
 _SMALL_CFG = dict(pose_mode="lockstep", q_solver="gn-lm", skip_part_opt=True, fk_impl="jump")
@@ -167,20 +220,28 @@ def test_entry_points_default_to_the_card():
 
 
 def test_port_never_imports_host_packages():
-    """jax, jaxlib, mujoco and the JAX package: nowhere in the port or in
-    chip_smoke.py. yaml, h5py and scipy: only inside the function bodies of
-    the port's config.py and io.py (and of chip_smoke.py, which writes a
-    DANNCE .mat with scipy), never at module level."""
-    never = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|mujoco|stac_mjx_tpu)\b", re.M)
-    top_level = re.compile(r"^(import|from)\s+(yaml|h5py|scipy)\b", re.M)
-    indented = re.compile(r"^\s+(import|from)\s+(yaml|h5py|scipy)\b", re.M)
+    """jax, jaxlib and the JAX package: nowhere in the port or in
+    chip_smoke.py. The host packages only inside the function bodies of the
+    modules that need them, never at module level: mujoco in the model
+    builder, the rescale and the renderer; imageio and cv2 in the renderer;
+    yaml in config.py and io.py; h5py in io.py and utils/convert.py; scipy in
+    io.py and chip_smoke.py (which writes a DANNCE .mat)."""
+    never = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|stac_mjx_tpu)\b", re.M)
     port = REPO / "stac_mjx_tpu_torch"
+    may_import_in_functions = {
+        "mujoco": {port / "models" / "builder.py", port / "models" / "rescale.py", port / "viz.py"},
+        "imageio": {port / "viz.py"},
+        "cv2": {port / "viz.py"},
+        "yaml": {port / "config.py", port / "io.py"},
+        "h5py": {port / "io.py", port / "utils" / "convert.py"},
+        "scipy": {port / "io.py", REPO / "chip_smoke.py"},
+    }
     files = sorted(port.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    may_import_in_functions = {port / "config.py", port / "io.py", REPO / "chip_smoke.py"}
     for path in files:
         text = path.read_text()
         assert not never.search(text), path
-        assert not top_level.search(text), path
-        if path not in may_import_in_functions:
-            assert not indented.search(text), path
+        for pkg, allowed in may_import_in_functions.items():
+            assert not re.search(rf"^(import|from)\s+{pkg}\b", text, re.M), (path, pkg)
+            if path not in allowed:
+                assert not re.search(rf"^\s+(import|from)\s+{pkg}\b", text, re.M), (path, pkg)

@@ -76,3 +76,19 @@ def test_cuda_kernel_matches_plain(cuda_device, n):
     with pytest.raises(ValueError):  # past the kernel's largest n
         big = torch.eye(max_n + 1, device=cuda_device)[None].contiguous()
         spd.spd_solve(big, torch.ones(1, max_n + 1, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [37, 44, 69, 73])
+def test_row_sum_is_batch_invariant_on_the_card(cuda_device, n):
+    """GNIK._row_sum of the first B rows of a 10,000-row batch equals the
+    batch's rows bitwise (torch.sum(dim=-1) differed at B = 5 ... 15 for
+    n = 69 on an H100: scripts/check_batch_invariance.py)."""
+    from stac_mjx_tpu_torch.ops.gn_ik import GNIK
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(10_000, n, generator=gen, device=cuda_device)
+    for terms in (x * x, x):
+        full = GNIK._row_sum(terms)
+        for B in tuple(range(1, 17)) + (40, 125, 2000):
+            assert torch.equal(GNIK._row_sum(terms[:B]), full[:B]), B

@@ -201,8 +201,11 @@ def test_driver_errors(runs, tmp_path):
     with pytest.raises(ValueError, match="differ from the model bundle"):
         main.run_stac(cfg, kp, names[::-1], base_path=tmp_path, device="cpu")
 
-    moved = config.compose_config(CONFIGS, overrides=OVERRIDES + ["model.KEYPOINT_INITIAL_OFFSETS.Snout=[0, 0, 0]"])
-    with pytest.raises(ValueError, match="KEYPOINT_INITIAL_OFFSETS.*export_torch_bundle"):
+    # A model no checked-in bundle serves, whose MJCF is not found: the port
+    # would compile it (models/builder.py), so it raises before any fit.
+    moved = config.compose_config(CONFIGS, overrides=OVERRIDES + ["model.KEYPOINT_INITIAL_OFFSETS.Snout=[0, 0, 0]",
+                                                                  "model.MJCF_PATH=models/absent.xml"])
+    with pytest.raises(ValueError, match="KEYPOINT_INITIAL_OFFSETS.*'models/absent.xml' was not found.*export_torch_bundle"):
         main.run_stac(moved, kp, names, base_path=tmp_path, device="cpu")
     assert not list(tmp_path.iterdir())  # no artifact from any of these
 

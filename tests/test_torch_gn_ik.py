@@ -174,3 +174,32 @@ def test_unported_options_raise():
     assert StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn-lm", gn_damping_rule="fixed").gnik.maxiter == 16
     assert StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn-lm", n_iter_q=5).gnik.maxiter == 5
     assert StacCore(fm.topo, fm.site_idxs, "cpu", q_solver="gn").gnik.maxiter == 16
+
+
+ROW_SUM_SIZES = tuple(range(1, 17)) + (40, 125, 2000)
+
+
+@pytest.mark.parametrize("n", [37, 44, 69, 73])
+def test_row_sum_is_the_sum_in_a_batch_invariant_order(n):
+    """GNIK._row_sum (the LM's e'e, predicted gain and step norm) against
+    torch.sum and the exact sum, float32 and float64: within 1 ulp of
+    torch.sum's result (measured here: equal), and in float32 within
+    k u sum|x_i| of the exact sum, k = ceil(log2 n), u the unit roundoff (the
+    bound of a pairwise sum, Higham, Accuracy and Stability, 4.2; measured:
+    up to 3.3 u sum|x_i|). Rows of the first B systems sum bitwise as in the
+    10,000-row batch."""
+    gen = torch.Generator().manual_seed(n)
+    x = torch.randn(10_000, n, generator=gen, dtype=torch.float64)
+    k = (n - 1).bit_length()
+    for dtype in (torch.float32, torch.float64):
+        eps = torch.finfo(dtype).eps
+        for terms in (x * x, x):
+            t = terms.to(dtype)
+            got, ref = GNIK._row_sum(t), t.sum(-1)
+            ulp = eps * torch.exp2(torch.floor(torch.log2(ref.abs())))  # spacing at torch.sum's result
+            assert bool(((got - ref).abs() <= ulp).all())
+            if dtype == torch.float32:
+                exact = t.double().sum(-1)  # float64 of float32 terms: exact to 2^-29 relative here
+                assert bool(((got.double() - exact).abs() <= k * eps / 2 * t.double().abs().sum(-1)).all())
+            for B in ROW_SUM_SIZES:
+                assert torch.equal(GNIK._row_sum(t[:B]), got[:B]), B
