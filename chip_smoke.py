@@ -91,7 +91,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    under the mujoco release that wrote it, else to 1e-12), ``run_stac`` on
    it equal to phase 10 bitwise, then a config no bundle serves (every
    initial offset moved by a seeded +-3 mm), compiled and run: launches 112
-   and 34, residuals and offset error under the bounds.
+   and 34, residuals and offset error under the bounds;
+15. surface: ``kinematics.subtree_com`` over the main phase's 10,000 ik
+   frames (body frames from the main Stac's FK at the fit's offsets, masses
+   from ``assets/firstparty_inertia.npz``) against the same function on the
+   CPU in float64, its time and its kernels per call (torch.profiler, 20
+   calls); ``make_site_fk`` bitwise against the level-scan
+   FK's site rows; the synth demo (``demos/torch_synth_data_demo.py``) on
+   the card, lockstep with the linesearch GN: its residual, and its K1
+   launches equal to its GN iterations plus linesearch retries, K1 against
+   its plain version on a pose pass's systems; the graph-error demo's
+   ``recompute_errors`` on phase 10's ik artifact against the CPU in
+   float64; ``firstparty.write_assets`` byte-equal to the checked-in files.
+   The phase's wall and the script's are printed on lines of their own.
 
 Cuts, all of depth (the model keeps its full width, nq 44, nv 37, and the
 solver settings, N_ITER_Q 400 and FTOL 1e-4, stay): the default phase fits
@@ -114,6 +126,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import importlib
+import importlib.util
 import json
 import os
 import re
@@ -220,17 +233,27 @@ def _bound(F, n) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _device_ms(fn, reps: int) -> float:
-    """Device time per call: the sum of the call's kernel and copy durations
-    (torch.profiler, CUPTI), free of the host's launch overhead."""
+def _device_kernels(fn, reps: int) -> dict[str, list[float]]:
+    """{kernel or copy name: [launches, device us]} per call of back-to-back
+    calls (torch.profiler, CUPTI), longest first."""
     acts = [torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us * 1e-3 / reps
+    per_call: dict[str, list[float]] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            row = per_call.setdefault(e.name, [0.0, 0.0])
+            row[0] += 1 / reps
+            row[1] += (e.time_range.end - e.time_range.start) / reps
+    return dict(sorted(per_call.items(), key=lambda kv: -kv[1][1]))
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Device time per call: the sum of the call's kernel and copy durations
+    (torch.profiler, CUPTI), free of the host's launch overhead."""
+    return sum(us for _, us in _device_kernels(fn, reps).values()) * 1e-3
 
 
 def _stream_ms(fn, reps: int) -> float:
@@ -1375,6 +1398,168 @@ def phase_model(spd, device, bundle, main_run, driver_run, smi: str) -> dict:
     return {"launches": launches}
 
 
+# Phase 15: the rest of the JAX package's public surface on the card.
+# COM_ABS: subtree_com in float32 on the card against float64 on the CPU, on
+# the same float32 body frames; the frames are O(0.3 m), a float32 rounding
+# of them ~3e-8 m, and a subtree's mass-weighted sum over at most 19 bodies,
+# one rotation and one division keep the error near 1e-7 m: bounded at 1e-5.
+COM_ABS = 1e-5
+COM_WALL_MAX_S = 1.0
+# The synth demo fits the model's own FK of its keypoint at the configured
+# offset: both packages print 0.0000 mm on the CPU. Bound: 1e-5 m, float32
+# rounding with a wide margin (the main path's residual is ~2e-3 m).
+DEMO_RESID_MAX = 1e-5
+# recompute_errors: card float32 against CPU float64 on the same artifact;
+# 5.8e-6 relative on the CPU at float32 (400 frames), bounded at 1e-4.
+ERRORS_REL = 1e-4
+FIRSTPARTY_ASSETS = ("models/firstparty.xml", "configs/model/firstparty.yaml", "configs/stac/firstparty.yaml")
+
+
+def _load_demo(name: str):
+    """A script of demos/ as a module."""
+    spec = importlib.util.spec_from_file_location(name, ROOT / "demos" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def _linesearch_steps():
+    """While active, counts the loop steps of the linesearch GN
+    (``GNIK._linesearch_gn``, its two nested ``while_lanes``): "iterations",
+    outer steps, each one kernel solve; "retries", linesearch steps, each
+    one more. So a run launches K1 exactly iterations + retries times."""
+    from stac_mjx_tpu_torch.ops import gn_ik
+
+    counts = {"solves": 0, "iterations": 0, "retries": 0}
+    loop, depth = gn_ik.while_lanes, [0]
+
+    def counting(cond, body, state):
+        level = depth[0]
+        counts["solves"] += level == 0
+
+        def counted(s, active):
+            counts["iterations" if level == 0 else "retries"] += 1
+            depth[0] += 1
+            try:
+                return body(s, active)
+            finally:
+                depth[0] -= 1
+
+        return loop(cond, counted, state)
+
+    gn_ik.while_lanes = counting
+    try:
+        yield counts
+    finally:
+        gn_ik.while_lanes = loop
+
+
+def phase_surface(spd, device, main_run, driver_run, smi: str) -> dict:
+    """subtree_com and make_site_fk over the main path's ik frames, the synth
+    demo through the linesearch GN and K1, the graph-error demo's
+    recompute_errors on the driver phase's artifact, write_assets."""
+    from stac_mjx_tpu_torch import io
+    from stac_mjx_tpu_torch.bridge import load_inertia
+    from stac_mjx_tpu_torch.config import config_from_dict
+    from stac_mjx_tpu_torch.models.firstparty import write_assets
+    from stac_mjx_tpu_torch.models.kinematics import make_fk, make_site_fk, subtree_com
+
+    t_phase = time.perf_counter()
+    checks = {}
+
+    # subtree_com over the main path's 10,000 ik frames: their body frames by
+    # the main Stac's FK at the fit's offsets (what compute_full_outputs
+    # gives), with params of this phase's own.
+    stac = main_run["stac"]
+    params = stac.params.set_site_pos(torch.as_tensor(main_run["fit"].offsets, device=device),
+                                      stac.stac_core_obj.site_idxs_t)
+    qpos = torch.as_tensor(main_run["ik"].qpos, device=device)
+    frames = stac.stac_core_obj.fk(params, qpos)
+    x, q = frames.xpos, frames.xquat
+    mass, ipos = load_inertia()
+    com = subtree_com(stac.topo, mass, ipos, device)
+    com(x, q)  # first call: the tables rounded to float32
+    got, com_s = _sync_time(lambda: com(x, q))
+    com_ms = _stream_ms(lambda: com(x, q), 20)
+    traced = _device_kernels(lambda: com(x, q), 20)
+    with _one_cpu_thread():
+        ref = subtree_com(stac.topo, mass, ipos, "cpu")(x.cpu().double(), q.cpu().double())
+    com_err = float((got.cpu().double() - ref).abs().max())
+    kernels = ", ".join(f"{name[:60]} {us:.1f} us x{n:g}" for name, (n, us) in traced.items())
+    print(f"surface: subtree_com over {tuple(got.shape)} (the main ik's frames, {len(stac.topo.levels)} levels) on the "
+          f"card ({smi}) in {com_s * 1e3:.3f} ms, {com_ms:.4f} ms per call on the stream (20 calls); vs cpu f64 max |delta| "
+          f"{com_err:.3e} m (bound {COM_ABS}); total mass {mass.sum():.6f}")
+    print(f"surface: subtree_com traced (torch.profiler, per call of 20): {sum(n for n, _ in traced.values()):g} "
+          f"launches, {sum(us for _, us in traced.values()):.1f} us of device time: {kernels}")
+    checks.update({
+        f"subtree_com within {COM_ABS} m of cpu f64, finite, ({N_IK}, 20, 3)":
+            com_err <= COM_ABS and bool(torch.isfinite(got).all()) and tuple(got.shape) == (N_IK, 20, 3),
+        f"subtree_com under {COM_WALL_MAX_S} s": com_s < COM_WALL_MAX_S,
+    })
+
+    # make_site_fk against the level-scan FK's site rows.
+    idx = stac._body_site_idxs
+    sites, site_s = _sync_time(lambda: make_site_fk(stac.topo, idx, device)(params, qpos))
+    full = make_fk(stac.topo, device)(params, qpos).site_xpos[:, idx]
+    print(f"surface: make_site_fk {tuple(sites.shape)} in {site_s:.3f} s (tables and first call): "
+          f"{'bitwise equal to' if torch.equal(sites, full) else 'differs from'} make_fk(...).site_xpos[:, idx]")
+    checks["make_site_fk bitwise equal to make_fk's site rows"] = torch.equal(sites, full)
+
+    # The synth demo (demos/torch_synth_data_demo.py, what its main runs) on
+    # the card: lockstep, the linesearch GN, K1 on its damped solves.
+    demo = _load_demo("torch_synth_data_demo")
+
+    def pose_pass(A, lam):  # a pose pass's systems: one per frame
+        return A.shape[0] == demo.N_FRAMES and lam is not None
+
+    with _linesearch_steps() as steps, _capturing(pose_pass) as captured:
+        spd.KERNEL_LAUNCHES = 0
+        out, demo_s = _sync_time(lambda: demo.run(device))
+        demo_launches = spd.KERNEL_LAUNCHES
+    demo.report(out)
+    A, g, lam = captured[0]
+    d_plain, d_f64, d_fin = _kernel_vs_plain(spd, A, g, lam)
+    expected = steps["iterations"] + steps["retries"]
+    print(f"surface: synth demo on the card in {demo_s:.3f} s: residual {out['residual']:.3e} m, translation error "
+          f"{out['drift']:.3e} m; {steps['solves']} linesearch GN solves, {steps['iterations']} iterations + "
+          f"{steps['retries']} linesearch retries = {expected} K1 launches expected, {demo_launches} counted; K1 on "
+          f"its systems (F = {A.shape[0]}, n = {A.shape[-1]}) vs plain {d_plain:.3e}, vs f64 {d_f64:.3e}")
+    checks.update({
+        f"synth demo residual < {DEMO_RESID_MAX} m": out["residual"] < DEMO_RESID_MAX,
+        "synth demo launched K1 once per GN iteration and linesearch retry": demo_launches == expected > 0,
+        "K1 on the demo's systems within bound of plain and f64": d_plain < KERNEL_REL_TOL and d_f64 < KERNEL_REL_TOL
+            and d_fin,
+    })
+
+    # recompute_errors on the driver phase's ik artifact (the in-memory store
+    # stands in for its h5 file): the card against the CPU in float64.
+    errors_demo = _load_demo("torch_graph_error_demo")
+    store = _MemoryArtifacts(io)
+    ik = driver_run["ik"]
+    store.save(config_from_dict(copy.deepcopy(driver_run["conf"])), "ik.h5", **ik.as_dict())
+    with store.installed():
+        (errors, _), err_s = _sync_time(lambda: errors_demo.recompute_errors("ik.h5", base_path=ROOT, device=device))
+        with _one_cpu_thread():
+            errors64, _ = errors_demo.recompute_errors("ik.h5", base_path=ROOT, device="cpu", dtype=torch.float64)
+    rel = float((np.abs(errors - errors64) / np.maximum(errors64, 1e-30)).max())
+    print(f"surface: recompute_errors on the driver's ik artifact {errors.shape} in {err_s:.3f} s: mean {errors.mean():.6e} "
+          f"m^2, {int((errors > 0.005).sum())} frames above 0.005; card f32 vs cpu f64 max rel {rel:.3e} "
+          f"(bound {ERRORS_REL})")
+    checks[f"recompute_errors within {ERRORS_REL} relative of cpu f64"] = rel <= ERRORS_REL and errors.shape == (N_IK,)
+
+    # write_assets: the first-party MJCF and configs, byte for byte.
+    with tempfile.TemporaryDirectory() as tmp:
+        for rel_path in FIRSTPARTY_ASSETS:
+            (Path(tmp) / rel_path).parent.mkdir(parents=True, exist_ok=True)
+        write_assets(tmp)
+        same = [(Path(tmp) / p).read_bytes() == (ROOT / p).read_bytes() for p in FIRSTPARTY_ASSETS]
+    checks["write_assets byte-equal to the checked-in files"] = all(same)
+    print(f"surface: phase wall {time.perf_counter() - t_phase:.2f} s")
+    _check_all("surface", checks)
+    return {"launches": demo_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
@@ -1396,7 +1581,7 @@ def main() -> int:
     print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     device = torch.device("cuda:0")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     spd._kernel()
     info = _build.BUILD_INFO["spd_chol"]
     print(f"build: spd_chol.cu in {time.perf_counter() - t0:.2f} s (nvcc {info['seconds']:.2f} s)")
@@ -1418,6 +1603,7 @@ def main() -> int:
     prof = phase_profiling(spd, main_run)
     model = phase_model(spd, device, bundle, main_run, drv, smi)
     print(f"phases 11-14 (distributed, options, profiling, model) in {time.perf_counter() - t_new:.1f} s")
+    surface = phase_surface(spd, device, main_run, drv, smi)
 
     # launches: every path's run (the rank processes' counts included). ms, plain_ms and
     # library_ms: time per call on the stream, as since the first version of
@@ -1425,8 +1611,10 @@ def main() -> int:
     by_path = {"main": main_run["launches"], "parts": parts["launches"], "driver": drv["launches"],
                "distributed_1": dist_run["launches"], "distributed_2": dist_run["launches_2"],
                "stall": opts["stall"], "wire16": opts["wire16"], "chunked": opts["chunked"],
-               "segmented": opts["segmented"], "profiling": prof["launches"], "model": model["launches"]}
+               "segmented": opts["segmented"], "profiling": prof["launches"], "model": model["launches"],
+               "demo": surface["launches"]}
     t = times[(37, 10_000)]
+    print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [{
         "name": "spd_chol_solve_f32",
         "route": "cuda",

@@ -3,8 +3,8 @@
 Mirrors the JAX package's module layout (``models/kinematics.py``,
 ``ops/gn_ik.py``, ``pipeline.py``, ``stac.py``, ``main.py`` ...) so each port
 sits next to its reference by name. Public API, as the JAX package's minus
-``enable_xla_flags``: ``load_data``, ``load_configs``, ``run_stac`` and
-``viz_stac``; ``cli.py`` is the console entry point.
+``enable_xla_flags``: ``load_data``, ``load_configs``, ``run_stac``,
+``viz_stac`` and ``__version__``; ``cli.py`` is the console entry point.
 
 The solve path imports torch and numpy only. The driver's I/O imports h5py
 (artifacts, NWB and .h5 recordings), scipy (.mat recordings) and PyYAML
@@ -26,7 +26,7 @@ torch.set_float32_matmul_precision("highest")
 
 from stac_mjx_tpu_torch.io import load_data  # noqa: E402
 from stac_mjx_tpu_torch.main import load_configs, run_stac  # noqa: E402
-
+from stac_mjx_tpu_torch.version import __version__  # noqa: E402
 
 
 def viz_stac(*args, **kwargs):
@@ -37,4 +37,4 @@ def viz_stac(*args, **kwargs):
     return _viz(*args, **kwargs)
 
 
-__all__ = ["load_data", "load_configs", "run_stac", "viz_stac"]
+__all__ = ["load_data", "load_configs", "run_stac", "viz_stac", "__version__"]

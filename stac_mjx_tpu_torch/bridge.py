@@ -43,6 +43,18 @@ def bundle_path(model: str) -> Path:
 
 BUNDLE_PATH = bundle_path("firstparty")
 
+
+# The first-party fitting model's body masses and inertial frames
+# (``builder.body_inertia``), for ``kinematics.subtree_com``.
+INERTIA_PATH = ASSETS / "firstparty_inertia.npz"
+
+
+def load_inertia() -> tuple[np.ndarray, np.ndarray]:
+    """(body_mass, body_ipos) of the first-party model from ``INERTIA_PATH``."""
+    with np.load(INERTIA_PATH, allow_pickle=False) as z:
+        return z["body_mass"], z["body_ipos"]
+
+
 TOPOLOGY_FIELDS = (
     "nq", "nv", "nbody", "nsite", "njnt",
     "body_parentid", "body_jntadr", "body_jntnum",

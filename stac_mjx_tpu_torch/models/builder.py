@@ -182,6 +182,17 @@ def bundle_arrays(cfg, base_path: str | Path | None = None) -> dict[str, np.ndar
     return _arrays(resolve_mjcf(cfg.model, base_path), cfg.model)
 
 
+def body_inertia(cfg, base_path: str | Path | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """(body_mass (nbody,), body_ipos (nbody, 3)), float64, of a composed
+    config's fitting model, compiled as ``bundle_arrays`` compiles it
+    (keypoint sites, SCALE_FACTOR rescale): the inputs of
+    ``kinematics.subtree_com``. The bundles do not carry them; for hosts
+    without mujoco the checked-in ``assets/firstparty_inertia.npz`` holds
+    the first-party model's (``scripts/export_torch_inertia.py`` writes it)."""
+    mj_model, _ = _compile(resolve_mjcf(cfg.model, base_path), cfg.model)
+    return np.asarray(mj_model.body_mass, np.float64), np.asarray(mj_model.body_ipos, np.float64)
+
+
 def build_fit_model(
     xml_path: str | Path, cfg_model, device: torch.device | str = "cuda", dtype: torch.dtype = torch.float32
 ) -> tuple[FitModel, np.ndarray]:

@@ -1,7 +1,9 @@
 """Forward kinematics over batched tensors (port of ``stac_mjx_tpu/models/kinematics.py``).
 
 Both schedules are here: the level scan (``make_fk``, the ``fk_impl=scan``
-default) and pointer doubling (``make_fk_jump``). Numerical semantics match
+default) and pointer doubling (``make_fk_jump``); also the FK of a subset of
+sites (``make_site_fk``) and the subtree centres of mass (``subtree_com``,
+mjx's ``com_pos``). Numerical semantics match
 MuJoCo's ``mj_kinematics``: free joints set the frame from qpos
 (mju_normalize4), ball/hinge/slide compose about the joint anchor with
 displacements relative to ``qpos0``, and the final body quaternion is
@@ -439,3 +441,70 @@ def make_fk_jump(topo: KinTopology, device: torch.device | str):
         return FKResult(xpos=xpos, xquat=xquat, site_xpos=site_xpos, xanchor=xanchor, xaxis=xaxis)
 
     return fk
+
+
+def make_site_fk(topo: KinTopology, site_idxs: np.ndarray, device: torch.device | str = "cuda"):
+    """Level-scan FK of a subset of sites: ``site_fk(params, qpos (F, nq))
+    -> site_xpos (F, len(site_idxs), 3)``, on the card unless ``device``
+    says otherwise."""
+    from stac_mjx_tpu_torch.bridge import resolve_device
+
+    device = resolve_device(device)
+    fk = make_fk(topo, device)
+    idx = torch.as_tensor(np.ascontiguousarray(site_idxs, dtype=np.int64), device=device)
+
+    def site_fk(params: KinParams, qpos: torch.Tensor) -> torch.Tensor:
+        return fk(params, qpos).site_xpos[:, idx]
+
+    return site_fk
+
+
+def subtree_com(
+    topo: KinTopology, body_mass: np.ndarray, body_ipos: np.ndarray, device: torch.device | str = "cuda"
+):
+    """Subtree centres of mass (the analogue of mjx ``com_pos``):
+    ``com(xpos (T, nbody, 3), xquat (T, nbody, 4)) -> (T, nbody, 3)``.
+
+    The JAX version's arithmetic: ``xipos = xpos + rotate(xquat, ipos)``,
+    the mass-weighted xipos summed bottom-up over each subtree, divided by
+    ``max(subtree mass, 1e-12)`` (the subtree masses summed on the host in
+    float64). The JAX version adds each child into its parent with one
+    update per body pair; here the sums go one depth level at a time,
+    deepest first: level d's rows are added into their parents (level d-1)
+    with one ``index_add_``, so a body's row holds its whole subtree before
+    its own level is added up. That is O(depth) launches over
+    ``topo.levels``, the tables the level-scan FK walks. On the CPU the
+    children of one parent are added in the level's (ascending) body order,
+    the JAX loop's order; on a card ``index_add_`` adds them atomically, in
+    no fixed order. The float64 tables are rounded to the frames' dtype once,
+    at that dtype's first call, so a call launches only the rotation, the
+    level adds and the division."""
+    from stac_mjx_tpu_torch.bridge import resolve_device
+
+    device = resolve_device(device)
+    mass = np.asarray(body_mass, dtype=np.float64)
+    subtree_mass = mass.copy()
+    for b in range(topo.nbody - 1, 0, -1):
+        subtree_mass[topo.body_parentid[b]] += subtree_mass[b]
+
+    def table(a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=device)
+
+    # (ipos (nbody, 3), mass (nbody, 1), max(subtree mass, 1e-12) (nbody, 1)).
+    tables64 = (table(np.asarray(body_ipos, dtype=np.float64)), table(mass[:, None]),
+                table(np.maximum(subtree_mass, 1e-12)[:, None]))
+    typed = {torch.float64: tables64}
+    # Deepest level first: (bodies of the level, their parents).
+    levels = [(table(lvl.astype(np.int64)), table(topo.body_parentid[lvl].astype(np.int64)))
+              for lvl in reversed(topo.levels)]
+
+    def com(xpos: torch.Tensor, xquat: torch.Tensor) -> torch.Tensor:
+        if xpos.dtype not in typed:
+            typed[xpos.dtype] = tuple(t.to(xpos.dtype) for t in tables64)
+        ipos, body_m, denom = typed[xpos.dtype]
+        acc = (xpos + qm.quat_rotate(xquat, ipos)) * body_m
+        for body, parent in levels:
+            acc.index_add_(1, parent, acc[:, body])
+        return acc / denom
+
+    return com

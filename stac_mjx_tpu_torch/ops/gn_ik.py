@@ -35,7 +35,7 @@ from stac_mjx_tpu_torch.models.kinematics import (
 )
 from stac_mjx_tpu_torch.ops import quat as qm
 from stac_mjx_tpu_torch.ops.solver import PGResult
-from stac_mjx_tpu_torch.ops.spd import spd_solve, spd_solve_plain
+from stac_mjx_tpu_torch.ops.spd import spd_solve
 from stac_mjx_tpu_torch.utils.lanes import while_lanes
 
 
@@ -400,15 +400,17 @@ class GNIK:
         ... (up to max_bad_steps) until the loss drops; an accepted step
         divides lambda by 1/damping_dec. A lane stops after maxiter
         iterations or once its accepted step's squared norm is <= tol.
-        The JAX version factors with ``jax.scipy.linalg.cho_factor`` /
-        ``cho_solve`` (XLA, not a Pallas kernel), so the counterpart here is
-        ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve``.
+        The JAX version factors JᵀJ + λI with ``jax.scipy.linalg.cho_factor``
+        / ``cho_solve`` (XLA); here each trial is one ``spd_solve(JᵀJ, g,
+        λ)`` over the lanes: the CUDA kernel on the card, and on the CPU its
+        plain version, ``cholesky_ex`` + ``cholesky_solve`` of the same
+        JᵀJ + λI. So a solve launches the kernel once per outer iteration
+        plus once per linesearch retry.
         """
         B = q0.shape[0]
         dtype = q0.dtype
         lb_c = torch.clamp(lb, -1e10, 1e10)
         ub_c = torch.clamp(ub, -1e10, 1e10)
-        eye = torch.eye(self.nv, dtype=dtype, device=q0.device)
         jmask = kmask[None, :, None] * dof_mask[:, None, :]
 
         def project(q):
@@ -432,7 +434,7 @@ class GNIK:
 
             def try_step(c, _active=None):
                 ls, lam_c, _, _, _ = c
-                delta = -spd_solve_plain(JtJ + lam_c[:, None, None] * eye, g) * dof_mask
+                delta = -spd_solve(JtJ, g, lam_c) * dof_mask
                 q_new = project(self.retract(q, delta))
                 f_new = loss_of(q_new)
                 ok = f_new < f_x
