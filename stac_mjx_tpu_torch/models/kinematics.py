@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from stac_mjx_tpu_torch.ops import quat as qm
+from stac_mjx_tpu_torch.utils.profiling import annotate
 
 # Joint type codes (mujoco.mjtJoint order: FREE=0, BALL=1, SLIDE=2, HINGE=3).
 JNT_FREE = 0
@@ -168,6 +169,16 @@ class FKResult:
         )
 
 
+def _spanned(fk):
+    """``fk`` with each pass in a span ``fk`` (``profiling.annotate``)."""
+
+    def spanned(params: KinParams, qpos: torch.Tensor) -> FKResult:
+        with annotate("fk"):
+            return fk(params, qpos)
+
+    return spanned
+
+
 def make_fk(topo: KinTopology, device: torch.device | str):
     """Level-scan FK: ``fk(params, qpos (F, nq)) -> FKResult``.
 
@@ -292,7 +303,7 @@ def make_fk(topo: KinTopology, device: torch.device | str):
         site_xpos = qm.take(xpos, 1, site_body) + qm.quat_rotate(qm.take(xquat, 1, site_body), params.site_pos)
         return FKResult(xpos=xpos, xquat=xquat, site_xpos=site_xpos, xanchor=xanchor, xaxis=xaxis)
 
-    return fk
+    return _spanned(fk)
 
 
 def make_fk_jump(topo: KinTopology, device: torch.device | str):
@@ -440,7 +451,7 @@ def make_fk_jump(topo: KinTopology, device: torch.device | str):
         site_xpos = qm.take(xpos, 1, site_body) + qm.quat_rotate(qm.take(xquat, 1, site_body), params.site_pos)
         return FKResult(xpos=xpos, xquat=xquat, site_xpos=site_xpos, xanchor=xanchor, xaxis=xaxis)
 
-    return fk
+    return _spanned(fk)
 
 
 def make_site_fk(topo: KinTopology, site_idxs: np.ndarray, device: torch.device | str = "cuda"):

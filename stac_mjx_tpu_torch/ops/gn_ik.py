@@ -37,6 +37,7 @@ from stac_mjx_tpu_torch.ops import quat as qm
 from stac_mjx_tpu_torch.ops.solver import PGResult
 from stac_mjx_tpu_torch.ops.spd import spd_solve
 from stac_mjx_tpu_torch.utils.lanes import while_lanes
+from stac_mjx_tpu_torch.utils.profiling import annotate
 
 
 class GNIK:
@@ -286,46 +287,48 @@ class GNIK:
                 active = stall < stall_n
                 if not bool(active.any()):
                     break
-            e = err_of(fkres)
-            J = self.jacobian(fkres) * jmask
-            Jt = J.transpose(1, 2)
-            A = torch.bmm(Jt, J)
-            g = self._gradient(J, e)
-            if lam_in_a:
-                x = spd_solve(A + lam[:, None, None] * eye, g)
-            else:
-                x = spd_solve(A, g, lam)
-            delta = -x * dof_mask
-            q_new = project(self.retract(q, delta))
-            fk_new = self.fk(params, q_new)
-            e_new = err_of(fk_new)
-            f_new = self._row_sum(e_new * e_new)
-            ok = f_new < f_x
-            if stall is not None:
-                ok = ok & active
-            gain = torch.where(ok, f_x - f_new, torch.zeros_like(f_x))
-            q = torch.where(ok[:, None], q_new, q)
-            f_x = torch.where(ok, f_new, f_x)
-            fkres = fk_new.where(ok, fkres)
-            if nielsen:
-                # rho = actual / predicted reduction of the unprojected step,
-                # pred = delta.(lam delta - g); f_x is e'e = 2F, and the
-                # missing 1/2 cancels between gain and pred.
-                pred = self._row_sum(delta * (lam[:, None] * delta - g))
-                rho = gain / torch.clamp(pred, min=1e-30)
-                shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-                lam_acc = torch.clamp(lam * shrink, 1e-7, 1e8)
-                lam_rej = torch.clamp(lam * self.damping_inc, 1e-7, 1e8)
-            else:
-                lam_acc = lam * self.damping_dec
-                lam_rej = lam * self.damping_inc
-            lam_next = torch.where(ok, lam_acc, lam_rej)
-            if stall is None:
-                lam = lam_next
-            else:
-                lam = torch.where(active, lam_next, lam)
-                stall = torch.where(gain > self.tol, 0, stall + 1)
-            k += 1
+            with annotate("lm.iter"):
+                with annotate("lm.jacobian"):
+                    e = err_of(fkres)
+                    J = self.jacobian(fkres) * jmask
+                    Jt = J.transpose(1, 2)
+                    A = torch.bmm(Jt, J)
+                    g = self._gradient(J, e)
+                if lam_in_a:
+                    x = spd_solve(A + lam[:, None, None] * eye, g)
+                else:
+                    x = spd_solve(A, g, lam)
+                delta = -x * dof_mask
+                q_new = project(self.retract(q, delta))
+                fk_new = self.fk(params, q_new)
+                e_new = err_of(fk_new)
+                f_new = self._row_sum(e_new * e_new)
+                ok = f_new < f_x
+                if stall is not None:
+                    ok = ok & active
+                gain = torch.where(ok, f_x - f_new, torch.zeros_like(f_x))
+                q = torch.where(ok[:, None], q_new, q)
+                f_x = torch.where(ok, f_new, f_x)
+                fkres = fk_new.where(ok, fkres)
+                if nielsen:
+                    # rho = actual / predicted reduction of the unprojected step,
+                    # pred = delta.(lam delta - g); f_x is e'e = 2F, and the
+                    # missing 1/2 cancels between gain and pred.
+                    pred = self._row_sum(delta * (lam[:, None] * delta - g))
+                    rho = gain / torch.clamp(pred, min=1e-30)
+                    shrink = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+                    lam_acc = torch.clamp(lam * shrink, 1e-7, 1e8)
+                    lam_rej = torch.clamp(lam * self.damping_inc, 1e-7, 1e8)
+                else:
+                    lam_acc = lam * self.damping_dec
+                    lam_rej = lam * self.damping_inc
+                lam_next = torch.where(ok, lam_acc, lam_rej)
+                if stall is None:
+                    lam = lam_next
+                else:
+                    lam = torch.where(active, lam_next, lam)
+                    stall = torch.where(gain > self.tol, 0, stall + 1)
+                k += 1
         return PGResult(
             params=q,
             error=torch.sqrt(f_x),

@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from stac_mjx_tpu_torch.utils.lanes import while_lanes
+from stac_mjx_tpu_torch.utils.profiling import annotate
 
 
 class PGResult(NamedTuple):
@@ -62,11 +63,12 @@ def graph_replay(fn: Callable, example: torch.Tensor) -> Callable:
     A loss evaluation of the scan FK is some 10^3 small kernels, each
     dispatched from the host in eager mode; a replay issues them all at once.
     The kernels are the same, so are the results. ``fn`` must take and
-    return tensors only and make no host sync.
+    return tensors only and make no host sync. Spans that ``fn`` opens
+    record at the capture only: a replay runs no Python.
     """
     device = example.device
     static_x = example.detach().clone()
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), annotate("pg.capture"):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):  # warm up allocator and autograd off the capture
@@ -79,10 +81,11 @@ def graph_replay(fn: Callable, example: torch.Tensor) -> Callable:
 
     def replay(x: torch.Tensor):
         static_x.copy_(x)
-        graph.replay()
-        if isinstance(static_out, tuple):
-            return tuple(o.clone() for o in static_out)
-        return static_out.clone()
+        with annotate("pg.replay"):
+            graph.replay()
+            if isinstance(static_out, tuple):
+                return tuple(o.clone() for o in static_out)
+            return static_out.clone()
 
     return replay
 
@@ -196,33 +199,34 @@ class ProjectedGradient:
             return (k < self.maxiter) & (err > self.tol)
 
         def body(s, active):
-            k, x, y, t, stepsize, err, f_x = s
-            f_y, g_y = vg(y)
-            if monotone_stepsize:
-                trial = torch.where(stepsize <= 1e-6, torch.ones_like(stepsize), stepsize)
-            else:
-                trial = torch.clamp(stepsize / self.decrease_factor, max=self.init_stepsize)
-            x_next, f_next, ss = linesearch(y, f_y, g_y, trial, active)
-            anchor = x if error_from_x else y
-            err_next = torch.linalg.vector_norm(x_next - anchor, dim=-1) / ss
-            # Failure containment: a non-finite step (NaN keypoints, inf
-            # loss) keeps the previous iterate and ends the lane.
-            ok = torch.isfinite(f_next) & torch.isfinite(x_next).all(dim=-1)
-            x_next = torch.where(ok[:, None], x_next, x)
-            f_next = torch.where(ok, f_next, f_x)
-            err_next = torch.where(ok, err_next, torch.zeros_like(err_next))
-            if self.acceleration:
-                t_next = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
-                y_next = x_next + ((t - 1.0) / t_next)[:, None] * (x_next - x)
-                if restart_on:
-                    # Adaptive restart: clear the momentum when it points
-                    # against descent.
-                    restart = _dot(y - x_next, x_next - x) > 0
-                    t_next = torch.where(restart, torch.ones_like(t_next), t_next)
-                    y_next = torch.where(restart[:, None], x_next, y_next)
-            else:
-                t_next, y_next = t, x_next
-            return k + 1, x_next, y_next, t_next, ss, err_next, f_next
+            with annotate("pg.iter"):
+                k, x, y, t, stepsize, err, f_x = s
+                f_y, g_y = vg(y)
+                if monotone_stepsize:
+                    trial = torch.where(stepsize <= 1e-6, torch.ones_like(stepsize), stepsize)
+                else:
+                    trial = torch.clamp(stepsize / self.decrease_factor, max=self.init_stepsize)
+                x_next, f_next, ss = linesearch(y, f_y, g_y, trial, active)
+                anchor = x if error_from_x else y
+                err_next = torch.linalg.vector_norm(x_next - anchor, dim=-1) / ss
+                # Failure containment: a non-finite step (NaN keypoints, inf
+                # loss) keeps the previous iterate and ends the lane.
+                ok = torch.isfinite(f_next) & torch.isfinite(x_next).all(dim=-1)
+                x_next = torch.where(ok[:, None], x_next, x)
+                f_next = torch.where(ok, f_next, f_x)
+                err_next = torch.where(ok, err_next, torch.zeros_like(err_next))
+                if self.acceleration:
+                    t_next = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+                    y_next = x_next + ((t - 1.0) / t_next)[:, None] * (x_next - x)
+                    if restart_on:
+                        # Adaptive restart: clear the momentum when it points
+                        # against descent.
+                        restart = _dot(y - x_next, x_next - x) > 0
+                        t_next = torch.where(restart, torch.ones_like(t_next), t_next)
+                        y_next = torch.where(restart[:, None], x_next, y_next)
+                else:
+                    t_next, y_next = t, x_next
+                return k + 1, x_next, y_next, t_next, ss, err_next, f_next
 
         fun_eager = fun
         with torch.no_grad():

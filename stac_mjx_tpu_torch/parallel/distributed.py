@@ -25,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from stac_mjx_tpu_torch.parallel.mesh import CLIP_AXIS, ClipGroup, clip_group, init_distributed
+from stac_mjx_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "CLIP_AXIS",
@@ -91,19 +92,21 @@ def fetch_arrays(tree, mesh: ClipGroup | None = None, dim: int = 0):
     """numpy arrays of a tensor, or a tuple, list or dict of them, each being
     this rank's block: with more than one rank, the blocks are all-gathered
     along ``dim`` in rank order (every block of a tensor the same shape), so
-    every rank returns the full arrays. Collective: every rank calls it."""
+    every rank returns the full arrays. Collective: every rank calls it.
+    Each tensor's gather and copy to the host is a span ``dist.all_gather``."""
     if mesh is None:
         mesh = pod_mesh()
     if isinstance(tree, dict):
         return {k: fetch_arrays(v, mesh, dim) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
         return type(tree)(fetch_arrays(v, mesh, dim) for v in tree)
-    t = tree.detach().contiguous()
-    if mesh.size > 1:
-        blocks = [torch.empty_like(t) for _ in range(dist.get_world_size(mesh.group))]
-        dist.all_gather(blocks, t, group=mesh.group)
-        t = torch.cat(blocks, dim=dim)
-    return t.cpu().numpy()
+    with annotate("dist.all_gather"):
+        t = tree.detach().contiguous()
+        if mesh.size > 1:
+            blocks = [torch.empty_like(t) for _ in range(dist.get_world_size(mesh.group))]
+            dist.all_gather(blocks, t, group=mesh.group)
+            t = torch.cat(blocks, dim=dim)
+        return t.cpu().numpy()
 
 
 def _local_frame_count(n_total: int, n_dev: int, what: str) -> int:

@@ -226,50 +226,54 @@ class Stac:
         if return_full is None:
             return_full = bool(self.stac_cfg.get("fit_return_full", True))
         wire16 = self._wire_dtype == "float16"
-        if wire16:
-            kp_host = np.array(kp_data.cpu() if isinstance(kp_data, torch.Tensor) else kp_data, np.float32)
-            kp, center_t = self._wire_up(kp_host)
-        else:
-            kp = self._to_device(kp_data)
-            kp_host = _numpy(kp)
-        seg = 0 if wire16 else self._seq_segment_frames(kp.shape[0])
         with profiling.phase("fit_offsets"):
-            if seg:
-                out = self._fit_offsets_segmented(kp, return_full, seg)
-            else:
-                out = pipeline.fit_offsets_program(
-                    self.stac_core_obj,
-                    self._static_cfg,
-                    self.params,
-                    kp,
-                    self._lb,
-                    self._ub,
-                    self._is_regularized,
-                    return_full=return_full,
+            with profiling.annotate("stac.upload"):
+                if wire16:
+                    kp_host = np.array(kp_data.cpu() if isinstance(kp_data, torch.Tensor) else kp_data, np.float32)
+                    kp, center_t = self._wire_up(kp_host)
+                else:
+                    kp = self._to_device(kp_data)
+                    kp_host = _numpy(kp)
+            seg = 0 if wire16 else self._seq_segment_frames(kp.shape[0])
+            with profiling.annotate("stac.solve"):
+                if seg:
+                    out = self._fit_offsets_segmented(kp, return_full, seg)
+                else:
+                    out = pipeline.fit_offsets_program(
+                        self.stac_core_obj,
+                        self._static_cfg,
+                        self.params,
+                        kp,
+                        self._lb,
+                        self._ub,
+                        self._is_regularized,
+                        return_full=return_full,
+                    )
+                pos = ["qpos"] + (["xpos", "xquat", "marker_sites"] if return_full else [])
+                if wire16:
+                    out.update(zip(pos, self._wire_down(center_t, [out[k] for k in pos])))
+            with profiling.annotate("stac.fetch"):
+                out = {k: _numpy(v) for k, v in out.items()}
+                if wire16:
+                    out.update(zip(pos, self._wire_unpack(_numpy(center_t), [out[k] for k in pos])))
+            with profiling.annotate("stac.package"):
+                for i in range(self._static_cfg.n_iters):
+                    mean, std = self._error_stats(out["iter_frame_errors"][i])
+                    print(
+                        f"Calibration iteration {i + 1}/{self._static_cfg.n_iters}: "
+                        f"mean marker error {mean:.6g} m (std {std:.6g}); "
+                        f"m-phase residual {out['iter_m_errors'][i]:.6g}"
+                    )
+                mean, std = self._error_stats(out["frame_error"])
+                print(f"Final pose optimization: mean marker error {mean:.6g} m (std {std:.6g})")
+                self._offsets = out["offsets"]
+                return self._package_data(
+                    out["qpos"],
+                    out.get("xpos"),
+                    out.get("xquat"),
+                    out.get("marker_sites"),
+                    kp_host,
                 )
-            pos = ["qpos"] + (["xpos", "xquat", "marker_sites"] if return_full else [])
-            if wire16:
-                out.update(zip(pos, self._wire_down(center_t, [out[k] for k in pos])))
-            out = {k: _numpy(v) for k, v in out.items()}
-        if wire16:
-            out.update(zip(pos, self._wire_unpack(_numpy(center_t), [out[k] for k in pos])))
-        for i in range(self._static_cfg.n_iters):
-            mean, std = self._error_stats(out["iter_frame_errors"][i])
-            print(
-                f"Calibration iteration {i + 1}/{self._static_cfg.n_iters}: "
-                f"mean marker error {mean:.6g} m (std {std:.6g}); "
-                f"m-phase residual {out['iter_m_errors'][i]:.6g}"
-            )
-        mean, std = self._error_stats(out["frame_error"])
-        print(f"Final pose optimization: mean marker error {mean:.6g} m (std {std:.6g})")
-        self._offsets = out["offsets"]
-        return self._package_data(
-            out["qpos"],
-            out.get("xpos"),
-            out.get("xquat"),
-            out.get("marker_sites"),
-            kp_host,
-        )
 
     def _fit_offsets_segmented(self, kp: torch.Tensor, return_full: bool, seg: int) -> dict:
         """The sequential fit with each pose pass split into ``seg``-frame
@@ -363,15 +367,18 @@ class Stac:
         q_carry = self.params.qpos0.expand(C, -1)
         parts, pending = [], None
         for s0 in range(0, Fc, seg):
-            res = pipeline.ik_sequential_segment(
-                core, cfg, self.params, batched_kp[:, s0 : s0 + seg], q_carry, offsets,
-                self._lb, self._ub, return_full=return_full, first_segment=s0 == 0,
-            )
+            with profiling.annotate("stac.solve"):
+                res = pipeline.ik_sequential_segment(
+                    core, cfg, self.params, batched_kp[:, s0 : s0 + seg], q_carry, offsets,
+                    self._lb, self._ub, return_full=return_full, first_segment=s0 == 0,
+                )
             q_carry = res[0]
             if pending is not None:
-                parts.append([_numpy(a) for a in pending])
+                with profiling.annotate("stac.fetch"):
+                    parts.append([_numpy(a) for a in pending])
             pending = res[1:]
-        parts.append([_numpy(a) for a in pending])
+        with profiling.annotate("stac.fetch"):
+            parts.append([_numpy(a) for a in pending])
         return [np.concatenate(col, axis=1) for col in zip(*parts)]
 
     @staticmethod
@@ -381,13 +388,16 @@ class Stac:
         chunk i is solved. Clips are independent: the results are one
         batch's. Returns the outputs as numpy, concatenated over clips."""
         starts = range(0, batched_kp.shape[0], chunk)
-        if not batched_kp.is_cuda:
-            parts = [[_numpy(a) for a in solve(batched_kp[i : i + chunk])] for i in starts]
-        else:
-            copier = torch.cuda.Stream(batched_kp.device)
-            parts = []
-            for i in starts:
+        cuda = batched_kp.is_cuda
+        copier = torch.cuda.Stream(batched_kp.device) if cuda else None
+        parts = []
+        for i in starts:
+            with profiling.annotate("stac.solve"):
                 outs = solve(batched_kp[i : i + chunk])
+            with profiling.annotate("stac.fetch"):
+                if not cuda:
+                    parts.append([_numpy(a) for a in outs])
+                    continue
                 copier.wait_stream(torch.cuda.current_stream(batched_kp.device))
                 with torch.cuda.stream(copier):
                     host = []
@@ -397,8 +407,10 @@ class Stac:
                         a.record_stream(copier)
                         host.append(h)
                 parts.append(host)
-            copier.synchronize()
-            parts = [[h.numpy() for h in p] for p in parts]
+        if cuda:
+            with profiling.annotate("stac.fetch"):
+                copier.synchronize()
+                parts = [[h.numpy() for h in p] for p in parts]
         return [np.concatenate(col, axis=0) for col in zip(*parts)]
 
     def ik_only(self, kp_data, offsets, return_full=None) -> StacData:
@@ -414,45 +426,50 @@ class Stac:
         clip = int(self.stac_cfg["n_frames_per_clip"])
         continuous = bool(self.stac_cfg.get("continuous", False))
         wire16 = self._wire_dtype == "float16"
-        if wire16:
-            kp_host = np.array(kp_data.cpu() if isinstance(kp_data, torch.Tensor) else kp_data, np.float32)
-            kp_host = batch_kp_data(kp_host, clip, continuous=continuous)
-            batched_kp, center_t = self._wire_up(kp_host)
-        else:
-            batched_kp = batch_kp_data(self._to_device(kp_data), clip, continuous=continuous)
-            kp_host = None
-        offsets = torch.as_tensor(np.array(offsets), device=self.device).to(self.dtype)
-        seg = 0 if wire16 else self._seq_segment_frames(batched_kp.shape[1])
-        chunk = 0 if seg else self._ik_chunk(batched_kp.shape[0])
-
-        def solve(kp):
-            out = pipeline.ik_only_program(
-                self.stac_core_obj, self._static_cfg, self.params, kp, offsets,
-                self._lb, self._ub, return_full=return_full,
-            )
-            if wire16:
-                return self._wire_down(center_t, list(out[:-1])) + [out[-1]]
-            return out
-
         with profiling.phase("ik_only"):
+            with profiling.annotate("stac.upload"):
+                if wire16:
+                    kp_host = np.array(kp_data.cpu() if isinstance(kp_data, torch.Tensor) else kp_data, np.float32)
+                    kp_host = batch_kp_data(kp_host, clip, continuous=continuous)
+                    batched_kp, center_t = self._wire_up(kp_host)
+                else:
+                    batched_kp = batch_kp_data(self._to_device(kp_data), clip, continuous=continuous)
+                offsets = torch.as_tensor(np.array(offsets), device=self.device).to(self.dtype)
+            seg = 0 if wire16 else self._seq_segment_frames(batched_kp.shape[1])
+            chunk = 0 if seg else self._ik_chunk(batched_kp.shape[0])
+
+            def solve(kp):
+                out = pipeline.ik_only_program(
+                    self.stac_core_obj, self._static_cfg, self.params, kp, offsets,
+                    self._lb, self._ub, return_full=return_full,
+                )
+                if wire16:
+                    return self._wire_down(center_t, list(out[:-1])) + [out[-1]]
+                return out
+
             if seg:
                 out = self._ik_only_segmented(batched_kp, offsets, return_full, seg)
             elif chunk:
                 out = self._ik_chunked(solve, batched_kp, chunk)
             else:
-                out = [_numpy(a) for a in solve(batched_kp)]
-            if wire16:
-                out = self._wire_unpack(_numpy(center_t), out[:-1]) + [out[-1]]
-        if return_full:
-            qposes, xposes, xquats, marker_sites, errors = out
-        else:
-            (qposes, errors), xposes, xquats, marker_sites = out, None, None, None
-        mean, std = self._error_stats(errors)
-        print(f"ik_only: mean marker error {mean:.6g} m (std {std:.6g})")
-        self._offsets = _numpy(offsets)
-        return self._package_data(
-            qposes, xposes, xquats, marker_sites, kp_host if wire16 else _numpy(batched_kp), batched=True
-        )
+                with profiling.annotate("stac.solve"):
+                    out = solve(batched_kp)
+            with profiling.annotate("stac.fetch"):
+                if not (seg or chunk):
+                    out = [_numpy(a) for a in out]
+                if wire16:
+                    out = self._wire_unpack(_numpy(center_t), out[:-1]) + [out[-1]]
+                else:
+                    kp_host = _numpy(batched_kp)
+                self._offsets = _numpy(offsets)
+            with profiling.annotate("stac.package"):
+                if return_full:
+                    qposes, xposes, xquats, marker_sites, errors = out
+                else:
+                    (qposes, errors), xposes, xquats, marker_sites = out, None, None, None
+                mean, std = self._error_stats(errors)
+                print(f"ik_only: mean marker error {mean:.6g} m (std {std:.6g})")
+                return self._package_data(qposes, xposes, xquats, marker_sites, kp_host, batched=True)
 
     # ------------------------------------------------------- distributed
 
@@ -468,21 +485,25 @@ class Stac:
 
         mesh = pod_mesh() if mesh is None else mesh
         cfg = dataclasses.replace(self._static_cfg, pose_mode="lockstep")
-        kp = self._to_device(kp_local)
         with profiling.phase("fit_offsets_sharded"):
-            out = pipeline.fit_offsets_sharded(
-                self.stac_core_obj, cfg, self.params, kp, self._lb, self._ub,
-                self._is_regularized, group=mesh.group,
-            )
-            sharded = ("qpos", "xpos", "xquat", "marker_sites", "frame_error")
-            host = fetch_arrays({k: out[k] for k in sharded}, mesh)
-            host["iter_frame_errors"] = fetch_arrays(out["iter_frame_errors"], mesh, dim=1)
-            host["offsets"], host["iter_m_errors"] = _numpy(out["offsets"]), _numpy(out["iter_m_errors"])
-            kp_all = fetch_arrays(kp, mesh)
-        mean, std = self._error_stats(host["frame_error"])
-        print(f"fit_offsets (sharded over {mesh.size} ranks): mean marker error {mean:.6g} m (std {std:.6g})")
-        self._offsets = host["offsets"]
-        return self._package_data(host["qpos"], host["xpos"], host["xquat"], host["marker_sites"], kp_all)
+            with profiling.annotate("stac.upload"):
+                kp = self._to_device(kp_local)
+            with profiling.annotate("stac.solve"):
+                out = pipeline.fit_offsets_sharded(
+                    self.stac_core_obj, cfg, self.params, kp, self._lb, self._ub,
+                    self._is_regularized, group=mesh.group,
+                )
+            with profiling.annotate("stac.fetch"):
+                sharded = ("qpos", "xpos", "xquat", "marker_sites", "frame_error")
+                host = fetch_arrays({k: out[k] for k in sharded}, mesh)
+                host["iter_frame_errors"] = fetch_arrays(out["iter_frame_errors"], mesh, dim=1)
+                host["offsets"], host["iter_m_errors"] = _numpy(out["offsets"]), _numpy(out["iter_m_errors"])
+                kp_all = fetch_arrays(kp, mesh)
+            with profiling.annotate("stac.package"):
+                mean, std = self._error_stats(host["frame_error"])
+                print(f"fit_offsets (sharded over {mesh.size} ranks): mean marker error {mean:.6g} m (std {std:.6g})")
+                self._offsets = host["offsets"]
+                return self._package_data(host["qpos"], host["xpos"], host["xquat"], host["marker_sites"], kp_all)
 
     def ik_only_global(self, kp_local_clips, offsets, mesh=None) -> StacData:
         """Batched IK of this rank's block of clips kp_local_clips (C_local,
@@ -492,19 +513,23 @@ class Stac:
         from stac_mjx_tpu_torch.parallel.distributed import fetch_arrays, pod_mesh
 
         mesh = pod_mesh() if mesh is None else mesh
-        kp = self._to_device(kp_local_clips)
-        offsets = torch.as_tensor(np.array(offsets), device=self.device).to(self.dtype)
         with profiling.phase("ik_only_global"):
-            out = pipeline.ik_only_program(
-                self.stac_core_obj, self._static_cfg, self.params, kp, offsets,
-                self._lb, self._ub, return_full=True,
-            )
-            qposes, xposes, xquats, marker_sites, errors = fetch_arrays(out, mesh)
-            kp_all = fetch_arrays(kp, mesh)
-        mean, std = self._error_stats(errors)
-        print(f"ik_only: mean marker error {mean:.6g} m (std {std:.6g})")
-        self._offsets = _numpy(offsets)
-        return self._package_data(qposes, xposes, xquats, marker_sites, kp_all, batched=True)
+            with profiling.annotate("stac.upload"):
+                kp = self._to_device(kp_local_clips)
+                offsets = torch.as_tensor(np.array(offsets), device=self.device).to(self.dtype)
+            with profiling.annotate("stac.solve"):
+                out = pipeline.ik_only_program(
+                    self.stac_core_obj, self._static_cfg, self.params, kp, offsets,
+                    self._lb, self._ub, return_full=True,
+                )
+            with profiling.annotate("stac.fetch"):
+                qposes, xposes, xquats, marker_sites, errors = fetch_arrays(out, mesh)
+                kp_all = fetch_arrays(kp, mesh)
+                self._offsets = _numpy(offsets)
+            with profiling.annotate("stac.package"):
+                mean, std = self._error_stats(errors)
+                print(f"ik_only: mean marker error {mean:.6g} m (std {std:.6g})")
+                return self._package_data(qposes, xposes, xquats, marker_sites, kp_all, batched=True)
 
     # ----------------------------------------------------------- package
 

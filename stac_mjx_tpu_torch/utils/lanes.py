@@ -5,7 +5,7 @@ its body on every lane for as long as *any* lane's condition holds, and
 keeps a finished lane's state by a per-lane select. The JAX package's
 projected-gradient and linesearch Gauss-Newton solvers rely on exactly this
 when they are vmapped over frames or clips; ``while_lanes`` reproduces it
-with one host sync (``.any()``) per loop step.
+with one host sync (``.any()``, in a span ``lanes.sync``) per loop step.
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from stac_mjx_tpu_torch.utils.profiling import annotate
 
 State = Sequence[torch.Tensor]
 
@@ -37,7 +39,9 @@ def while_lanes(
     state = tuple(state)
     while True:
         active = cond(state)
-        if not bool(active.any()):
+        with annotate("lanes.sync"):
+            go_on = bool(active.any())
+        if not go_on:
             return state
         new = body(state, active)
         state = tuple(_select(active, n, o) for n, o in zip(new, state))

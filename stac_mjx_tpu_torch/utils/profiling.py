@@ -1,12 +1,21 @@
-"""Phase timers and device traces (port of ``stac_mjx_tpu/utils/profiling.py``).
+"""Phase timers, spans and device traces (port of ``stac_mjx_tpu/utils/profiling.py``).
 
 - ``phase(name)``: times a pipeline phase; durations accumulate in a
   process-wide registry (``report()`` summarises, ``reset()`` clears) and are
-  logged through the package logger. ``Stac`` wraps its entry points in it.
+  logged through the package logger; the phase is also a span. ``Stac``
+  wraps its four entry points in it.
+- ``annotate(name)``: a named span (``torch.profiler.record_function``) while
+  a torch profiler records, else a shared no-op. The program opens spans
+  where its work happens (``stac.upload``, ``stac.solve``, ``stac.fetch``,
+  ``stac.package``, ``lm.iter``, ``lm.jacobian``, ``fk``, ``pg.iter``,
+  ``pg.capture``, ``pg.replay``, ``lanes.sync``, ``dist.all_gather``; see
+  PERF.md). They appear in any ``torch.profiler`` trace, ``device_trace``'s
+  included, on the timeline of the card's kernels; with no profiler a span
+  costs one test of the profiler's flag (~0.1 us), records nothing and
+  never syncs, allocates or launches.
 - ``device_trace(logdir)``: ``torch.profiler`` over the enclosed block (CPU
   activity, and CUDA where a card is present), exported as a Chrome trace
   under ``logdir``; warns and carries on when the profiler cannot start.
-- ``annotate(name)``: a named span in that trace (``record_function``).
 - ``op_table(logdir)``: time per kernel (or per CPU op) summed from the
   newest trace under ``logdir``.
 """
@@ -29,14 +38,25 @@ logger = logging.getLogger("stac_mjx_tpu_torch")
 
 _phase_totals: dict[str, float] = defaultdict(float)
 _phase_counts: dict[str, int] = defaultdict(int)
+_NO_SPAN = contextlib.nullcontext()
+
+
+def annotate(name: str):
+    """A span named ``name`` in the trace of the torch profiler that is
+    recording, or, with none recording, one shared no-op context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
 def phase(name: str, log: bool = True):
-    """Time a pipeline phase; accumulate into the process-wide registry."""
+    """Time a pipeline phase, as a span of the same name; accumulate into
+    the process-wide registry."""
     t0 = time.perf_counter()
     try:
-        yield
+        with annotate(name):
+            yield
     finally:
         dt = time.perf_counter() - t0
         _phase_totals[name] += dt
@@ -85,11 +105,6 @@ def device_trace(logdir: str):
             prof.stop()
             os.makedirs(logdir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(logdir, f"trace_{time.time_ns()}.pt.trace.json"))
-
-
-def annotate(name: str):
-    """A named span in a ``device_trace``."""
-    return torch.profiler.record_function(name)
 
 
 def op_table(logdir: str, device_substr: str = "GPU", top: int = 12) -> dict:
