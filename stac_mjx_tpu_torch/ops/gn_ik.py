@@ -15,9 +15,17 @@ damping passed to the SPD kernel per frame: the lockstep path), and
 either the flat LM (fixed damping rule, damping added into A before the
 solve) or, with ``linesearch``, damped Gauss-Newton with a backtracking
 linesearch on the damping.
+
+On the card a fixed-count flat LM solve of up to ``_GRAPH_MAX_FRAMES``
+frames replays from a CUDA graph (``GNIK._flat_lm``, ``_LMGraph``): its host
+would otherwise dispatch some 375 kernels an iteration, which takes longer
+than the card's work on them.
 """
 
 from __future__ import annotations
+
+import collections
+import dataclasses
 
 import numpy as np
 import torch
@@ -34,10 +42,80 @@ from stac_mjx_tpu_torch.models.kinematics import (
     make_fk_jump,
 )
 from stac_mjx_tpu_torch.ops import quat as qm
+from stac_mjx_tpu_torch.ops import spd
 from stac_mjx_tpu_torch.ops.solver import PGResult
 from stac_mjx_tpu_torch.ops.spd import spd_solve
 from stac_mjx_tpu_torch.utils.lanes import while_lanes
 from stac_mjx_tpu_torch.utils.profiling import annotate
+
+# The largest frame batch whose flat LM solve replays from a CUDA graph.
+# On an H100 the host dispatches an eager iteration in ~7.5 ms at any F up to
+# 23,040, while a replayed one takes the card's time, 0.5 ms at F = 1 to
+# 3.6 ms at F = 16,384 (2.1x faster); the graph's memory pool grows with F,
+# 1.3 GB at 16,384 (scripts/time_lm_graphs.py; PERF.md keeps the sweep).
+_GRAPH_MAX_FRAMES = 16384
+# Captured solves a GNIK keeps, the least recently used dropped first.
+_GRAPH_CACHE_SIZE = 8
+
+
+def _graph_device(t: torch.Tensor) -> bool:
+    """Whether a solve on ``t`` can be captured: a CUDA tensor, and no
+    capture under way (a solve inside one is part of it)."""
+    return t.is_cuda and not torch.cuda.is_current_stream_capturing()
+
+
+def _tensors(args) -> list[torch.Tensor]:
+    """The tensors of ``_flat_lm``'s inputs (params, kp_data, kmask,
+    dof_mask, q0, lb, ub): the seven of ``KinParams``, then the rest."""
+    params, *rest = args
+    return [getattr(params, f.name) for f in dataclasses.fields(params)] + rest
+
+
+def _args(params, tensors):
+    """``_tensors``' inverse, with ``params``' type."""
+    names = [f.name for f in dataclasses.fields(params)]
+    return (dataclasses.replace(params, **dict(zip(names, tensors))), *tensors[len(names):])
+
+
+class _LMGraph:
+    """One fixed-count flat LM solve captured into a CUDA graph, over static
+    copies of its inputs. A call copies the inputs in, replays the graph and
+    returns clones of its outputs: the kernels of the eager loop, in its
+    order, on the same shapes, so the results are bitwise the eager ones.
+
+    ``solve(*args) -> PGResult`` must make no host sync. Spans it opens
+    record at the capture only: a replay runs no Python.
+    """
+
+    def __init__(self, solve, args):
+        self.device = args[4].device  # q0's
+        self.static = [t.detach().clone(memory_format=torch.contiguous_format) for t in _tensors(args)]
+        static_args = _args(args[0], self.static)
+        before = spd.KERNEL_LAUNCHES
+        with annotate("lm.capture"):
+            self.out = self._capture(lambda: solve(*static_args))
+        # A capture launches nothing; each replay launches what it captured.
+        self.launches = spd.KERNEL_LAUNCHES - before
+        spd.KERNEL_LAUNCHES = before
+
+    def _capture(self, run) -> PGResult:
+        # thread_local: the process group's watchdog thread may query its
+        # events on the card while this thread captures.
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device), torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            return run()
+
+    def _replay(self) -> None:
+        with torch.cuda.device(self.device):
+            self.graph.replay()
+
+    def __call__(self, args) -> PGResult:
+        with annotate("lm.replay"):
+            for s, t in zip(self.static, _tensors(args)):
+                s.copy_(t)
+            self._replay()
+            spd.KERNEL_LAUNCHES += self.launches
+            return PGResult(*(o.clone() for o in self.out))
 
 
 class GNIK:
@@ -179,6 +257,8 @@ class GNIK:
         self._quat_q = dev(np.array([list(r) for r in quat_q], np.int64).reshape(-1, 4))
         self._quat_d = dev(np.array([list(r) for r in quat_d], np.int64).reshape(-1, 3))
         self._eye3 = torch.eye(3, device=self.device)
+        # Flat LM solves by shape: None once seen, then the captured _LMGraph.
+        self._graphs: collections.OrderedDict = collections.OrderedDict()
 
     # ----------------------------------------------------------- retraction
 
@@ -254,6 +334,51 @@ class GNIK:
         return (qs @ self._v_from_q.to(dtype).T > 0).to(dtype)
 
     def _flat_lm(self, params, kp_data, kmask, dof_mask, q0, lb, ub, maxiter, nielsen, lam_in_a, stall_n=0):
+        """The flat LM solve of a batch of F frames (``_lm_loop``), replayed
+        from a CUDA graph where one holds it.
+
+        A solve is graphed when its tensors are on a card, it runs a fixed
+        count of iterations (stall_n 0: no host sync), autograd records
+        nothing and F <= ``_GRAPH_MAX_FRAMES``. The first solve of a shape
+        runs eager and is the warm-up, the second is captured and replayed,
+        later ones replay. Graphs are kept by shape, at most
+        ``_GRAPH_CACHE_SIZE``, the least recently used dropped first."""
+        args = (params, kp_data, kmask, dof_mask, q0, lb, ub)
+        with annotate("lm.solve"):
+            key = self._graph_key(args, maxiter, nielsen, lam_in_a, stall_n)
+            if key is None:
+                return self._lm_loop(*args, maxiter, nielsen, lam_in_a, stall_n)
+            if key not in self._graphs:
+                self._graphs[key] = None
+                if len(self._graphs) > _GRAPH_CACHE_SIZE:
+                    self._graphs.popitem(last=False)
+                return self._lm_loop(*args, maxiter, nielsen, lam_in_a)
+            self._graphs.move_to_end(key)
+            graph = self._graphs[key]
+            if graph is None:
+                graph = self._graphs[key] = _LMGraph(
+                    lambda *a: self._lm_loop(*a, maxiter, nielsen, lam_in_a), args
+                )
+            return graph(args)
+
+    @staticmethod
+    def _graph_key(args, maxiter, nielsen, lam_in_a, stall_n):
+        """The cache key of a graphable ``_flat_lm`` solve, or None where it
+        runs eager: on the CPU, with stall freezing, under autograd, or past
+        ``_GRAPH_MAX_FRAMES`` frames."""
+        tensors = _tensors(args)
+        q0 = args[4]
+        if (
+            stall_n
+            or q0.shape[0] > _GRAPH_MAX_FRAMES
+            or not _graph_device(q0)
+            or (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+        ):
+            return None
+        return (str(q0.device), q0.dtype, maxiter, nielsen, lam_in_a,
+                tuple((tuple(t.shape), t.dtype) for t in tensors))
+
+    def _lm_loop(self, params, kp_data, kmask, dof_mask, q0, lb, ub, maxiter, nielsen, lam_in_a, stall_n=0):
         """The flat LM loop over a batch of F frames: one FK, Jacobian and SPD
         solve per iteration, accept iff the loss drops, per-frame damping.
 
@@ -352,8 +477,10 @@ class GNIK:
 
         ``qs_to_opt`` is (nq,), shared by every frame, or (F, nq) per item.
         ``maxiter`` overrides the instance's iteration count for this solve.
-        With ``stall_iters`` 0 a fixed-count Python loop with no host sync;
-        else the JAX version's stall freezing and early exit (``_flat_lm``).
+        With ``stall_iters`` 0 a fixed-count Python loop with no host sync,
+        replayed from a CUDA graph on the card up to ``_GRAPH_MAX_FRAMES``
+        frames; else the JAX version's stall freezing and early exit
+        (``_flat_lm``).
         """
         dtype = q0.dtype
         return self._flat_lm(

@@ -7,8 +7,9 @@
 - ``annotate(name)``: a named span (``torch.profiler.record_function``) while
   a torch profiler records, else a shared no-op. The program opens spans
   where its work happens (``stac.upload``, ``stac.solve``, ``stac.fetch``,
-  ``stac.package``, ``lm.iter``, ``lm.jacobian``, ``fk``, ``pg.iter``,
-  ``pg.capture``, ``pg.replay``, ``lanes.sync``, ``dist.all_gather``; see
+  ``stac.package``, ``lm.solve``, ``lm.capture``, ``lm.replay``,
+  ``lm.iter``, ``lm.jacobian``, ``fk``, ``pg.iter``, ``pg.capture``,
+  ``pg.replay``, ``lanes.sync``, ``dist.all_gather``; see
   PERF.md). They appear in any ``torch.profiler`` trace, ``device_trace``'s
   included, on the timeline of the card's kernels; with no profiler a span
   costs one test of the profiler's flag (~0.1 us), records nothing and

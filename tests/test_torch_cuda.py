@@ -97,8 +97,12 @@ def test_row_sum_is_batch_invariant_on_the_card(cuda_device, n):
 @pytest.mark.cuda
 def test_spans_on_the_card_s_timeline(cuda_device, tmp_path):
     """Traced on the card (``device_trace``): every kernel launched inside an
-    ``lm.iter`` span starts after the span does, and a projected-gradient
-    solve under graph replay shows its two captures and its replays."""
+    ``lm.iter`` span starts after the span does, a Stac's second call
+    replays its LM solves from graphs inside their ``lm.solve`` spans, and a
+    projected-gradient solve under graph replay shows its two captures and
+    its replays. A second Stac's first call runs eager after the first's,
+    where the profiler, which misses what comes right after its start,
+    records its kernels."""
     import glob
     import json
 
@@ -114,9 +118,10 @@ def test_spans_on_the_card_s_timeline(cuda_device, tmp_path):
     st = Stac(bundle, cfg, {"N_ITERS": 1}, device=cuda_device)
     kp, _, _, _ = make_recording(bundle, n_frames=200, seed=0, device=cuda_device)
     target = torch.linspace(-1.0, 2.0, 8, device=cuda_device).reshape(4, 2)
+    st2 = Stac(bundle, cfg, {"N_ITERS": 1}, device=cuda_device)
     with profiling.device_trace(str(tmp_path)):
-        for _ in range(2):  # the profiler misses the launches right after its start
-            st.ik_only(kp, st._offsets.copy())
+        for stac in (st, st2, st):  # the profiler misses the launches right after its start
+            stac.ik_only(kp, stac._offsets.copy())
         ProjectedGradient(maxiter=20).run(lambda x: torch.sum((x - target) ** 2, dim=-1),
                                           torch.zeros(4, 2, device=cuda_device),
                                           torch.full((2,), -0.5, device=cuda_device),
@@ -142,3 +147,121 @@ def test_spans_on_the_card_s_timeline(cuda_device, tmp_path):
                 break
     assert checked > 0 and len(iters) > 0
     assert len(spans["pg.capture"]) == 2 and len(spans["pg.replay"]) > 2
+    # Each Stac's first call runs its solves eager, st's second captures and replays them.
+    assert len(spans["lm.replay"]) == len(spans["lm.capture"]) >= 1
+    assert len(spans["lm.solve"]) == 3 * len(spans["lm.replay"])
+    for s, end in spans["lm.replay"] + spans["lm.capture"]:
+        assert any(a <= s and end <= b for a, b in spans["lm.solve"])
+
+
+def _lm_problem(device, frames, seed, params=None):
+    """A first-party GNIK on the card (float32, nielsen, 14 iterations), its
+    params, box, and keypoints of ``frames`` random poses with starts
+    perturbed from them; ``params`` moves the sites, as an m-phase does."""
+    from stac_mjx_tpu_torch import bridge
+    from stac_mjx_tpu_torch.ops.gn_ik import GNIK
+
+    b = bridge.load_bundle()
+    fm = bridge.fit_model_from_arrays(b, device, torch.float32)
+    g = GNIK(fm.topo, fm.site_idxs, device, maxiter=14)
+    params = fm.params if params is None else params
+    rng = np.random.default_rng(seed)
+    q_true = np.tile(b["qpos0"], (frames, 1)) + rng.normal(0, 0.3, (frames, 44))
+    q0 = q_true + rng.normal(0, 0.15, (frames, 44))
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    kp = g.fk(params, as_t(q_true)).site_xpos[:, g._site_idxs].reshape(frames, -1)
+    lb, ub = as_t(b["lb"]), as_t(b["ub"])
+    return g, params, kp, as_t(q0), lb, ub
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frames", [1, 250, 1000])
+def test_lm_graph_replay_bitwise_as_eager(cuda_device, frames, monkeypatch):
+    """A GNIK's solves of one shape: the first eager, the second captured
+    and replayed, the third replayed, then a fourth with moved sites, new
+    keypoints and new starts (a graph that kept its captured inputs would
+    answer the old problem): each bitwise the eager solve of its inputs,
+    launching K1 as often. At one frame the single-frame ``solve`` (damping
+    in A), else ``solve_batch`` (damping per frame into K1)."""
+    from stac_mjx_tpu_torch.ops import gn_ik
+
+    g, params, kp, q0, lb, ub = _lm_problem(cuda_device, frames, seed=frames)
+    sites = g._site_idxs
+    moved = params.set_site_pos(params.site_pos[sites] + 3e-3, sites)
+    _, _, kp2, q02, _, _ = _lm_problem(cuda_device, frames, seed=frames + 1, params=moved)
+    qs, kps = torch.ones(44, dtype=torch.bool, device=cuda_device), torch.ones(69, device=cuda_device)
+
+    def solve(p, k, q):
+        if frames == 1:
+            return g.solve(p, k[0], qs, kps, q[0], lb, ub)
+        return g.solve_batch(p, k, qs, kps, q, lb, ub)
+
+    problems = [(params, kp, q0)] * 3 + [(moved, kp2, q02)]
+    graphed, launches = [], []
+    for p, k, q in problems:
+        before = spd.KERNEL_LAUNCHES
+        graphed.append(solve(p, k, q))
+        launches.append(spd.KERNEL_LAUNCHES - before)
+    (key,) = g._graphs
+    assert isinstance(g._graphs[key], gn_ik._LMGraph) and key[4] == (frames == 1)
+    monkeypatch.setattr(gn_ik, "_GRAPH_MAX_FRAMES", 0)
+    for (p, k, q), got, n in zip(problems, graphed, launches):
+        before = spd.KERNEL_LAUNCHES
+        want = solve(p, k, q)
+        assert spd.KERNEL_LAUNCHES - before == n == 14
+        for f in want._fields:
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert not torch.equal(graphed[3].params, graphed[0].params)
+
+
+@pytest.mark.cuda
+def test_no_graph_above_the_bound(cuda_device, monkeypatch):
+    from stac_mjx_tpu_torch.ops import gn_ik
+
+    monkeypatch.setattr(gn_ik, "_GRAPH_MAX_FRAMES", 8)
+    for frames, graphs in ((9, 0), (8, 1)):
+        g, params, kp, q0, lb, ub = _lm_problem(cuda_device, frames, seed=0)
+        for _ in range(3):
+            g.solve_batch(params, kp, torch.ones(44, device=cuda_device), torch.ones(69, device=cuda_device),
+                          q0, lb, ub)
+        assert sum(isinstance(v, gn_ik._LMGraph) for v in g._graphs.values()) == graphs, frames
+
+
+@pytest.mark.cuda
+def test_stac_graphed_bitwise_as_eager(cuda_device, monkeypatch):
+    """Two calibrations (250 frames, the main path's 112 K1 launches each)
+    and two ik calls (1,000 frames in 4 clips, 34 launches) on the
+    first-party critter: graphed (the second of each replays every solve)
+    bitwise as with every solve eager, at the same launch counts."""
+    from stac_mjx_tpu_torch import bridge
+    from stac_mjx_tpu_torch.models.firstparty import make_recording
+    from stac_mjx_tpu_torch.ops import gn_ik
+    from stac_mjx_tpu_torch.stac import Stac
+
+    bundle = bridge.load_bundle()
+    cfg = {"pose_mode": "lockstep", "q_solver": "gn-lm", "skip_part_opt": True, "fk_impl": "jump",
+           "continuous": False, "ik_hier_stride": 8, "ik_hier_fine_iters": 6, "n_fit_frames": 250,
+           "n_frames_per_clip": 250}
+    kp, _, _, _ = make_recording(bundle, n_frames=1000, seed=0, device=cuda_device)
+
+    def run():
+        st = Stac(bundle, cfg, device=cuda_device)
+        outs, launches = [], []
+        for _ in range(2):
+            for call in (lambda: st.fit_offsets(kp[:250]), lambda: st.ik_only(kp, st._offsets.copy())):
+                before = spd.KERNEL_LAUNCHES
+                data = call()
+                launches.append(spd.KERNEL_LAUNCHES - before)
+                outs.append({k: v for k, v in data.as_dict().items() if isinstance(v, np.ndarray)})
+        return outs, launches, st
+
+    graphed, n_graphed, st = run()
+    assert sum(isinstance(v, gn_ik._LMGraph) for v in st.stac_core_obj.gnik._graphs.values()) >= 2
+    monkeypatch.setattr(gn_ik, "_GRAPH_MAX_FRAMES", 0)
+    eager, n_eager, st = run()
+    assert not st.stac_core_obj.gnik._graphs
+    assert n_graphed == n_eager == [112, 34, 112, 34], (n_graphed, n_eager)
+    for got, want in zip(graphed, eager):
+        assert got.keys() == want.keys()
+        for k in want:
+            assert np.array_equal(got[k], want[k]), k
