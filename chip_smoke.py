@@ -10,7 +10,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. kernel: prints ptxas' registers and spills per kernel instantiation;
    holds the CUDA kernel against its plain PyTorch version and a float64
    solve at the edges of its register layout (n) and of its blocks (F), with
-   and without lam; checks that one indefinite system poisons only its own
+   and without lam, and at the tethered fly's shapes (n = 102, F = 22,800
+   and 180,000); checks that one indefinite system poisons only its own
    x;
 4. main path: the bench's throughput configuration (lockstep flat LM,
    pointer-doubling FK, no part passes, hierarchical ik 8/6) on the
@@ -30,7 +31,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    fit's batched part pass (masked dofs leave lam-only rows), the kernel
    against its plain version and a float64 solve;
 8. kernel times: in turns, the kernel, the plain version and one library
-   call (torch.linalg.solve) at the main path's shapes, as time per call on
+   call (torch.linalg.solve) at the main path's shapes and the fly's, as time per call on
    the stream (CUDA events) and as device time (torch.profiler), each
    beside its bound;
 9. default: the JAX package's default configuration (sequential pose mode,
@@ -103,7 +104,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    its plain version on a pose pass's systems; the graph-error demo's
    ``recompute_errors`` on phase 10's ik artifact against the CPU in
    float64; ``firstparty.write_assets`` byte-equal to the checked-in files.
-   The phase's wall and the script's are printed on lines of their own.
+   The phase's wall and the script's are printed on lines of their own;
+16. fly: the tethered fly (``assets/fly_tethered_bundle.npz``, nv 102) at
+   the benchmark cell's size through ``Stac.ik_only`` as the benchmark's
+   ``ik_fixed`` job runs it (one fixed session, 180,000 frames, every pass
+   eager): the wide kernel's launches must be exactly 20 at width 104 (14
+   coarse, 6 fine), the poses within the cell's limits by the float64
+   reference, K1 on the coarse pass's systems against its plain version and
+   float64.
 
 Cuts, all of depth (the model keeps its full width, nq 44, nv 37, and the
 solver settings, N_ITER_Q 400 and FTOL 1e-4, stay): the default phase fits
@@ -114,7 +122,8 @@ backward (~2,400 small kernels) and the solves of a sequential pass follow
 one another frame by frame; the reference phases run 40-64 frames with
 N_ITERS 2.
 
-The second-to-last line is {"kernels": [...]} and the last line
+The second-to-last line is {"kernels": [...]} (the kernel at n = 37 and its
+layout past n = 96 at the fly's n = 102) and the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 ``python3 chip_smoke.py --dist-worker <spec.json>`` is one rank of phase 11;
@@ -210,14 +219,19 @@ def _resid(markers, kp, n) -> float:
 
 
 # The kernel phase: correctness at the register-layout edges of the kernel
-# (a row block is 32 rows; 6, 37 and 73 are the models' sizes; the kernel's
-# own max_n is added) and at batch sizes that are not a multiple of its four
-# systems per block; times at the main path's shapes (PERF.md: n=37 at
-# F=10,000 / 1,250 ik passes, 250 fit passes, 40 root batch, 1 flat LM) and
-# at the rodent's n=73.
-EDGE_N = (1, 6, 31, 32, 33, 37, 64, 65, 73)
+# (a row block is 32 rows; 6, 37, 73 and 102 are the models' sizes; 96 is
+# the last with every row in registers, 97 the first with rows in shared
+# memory; the kernel's own max_n is added) and at batch sizes that are not a
+# multiple of its four systems per block; times at the main path's shapes
+# (PERF.md: n=37 at F=10,000 / 1,250 ik passes, 250 fit passes, 40 root
+# batch, 1 flat LM), at the rodent's n=73 and at the tethered fly's n=102
+# (its ik's coarse and fine passes, F=22,800 and 180,000), where the kernel is
+# also held against its plain version.
+EDGE_N = (1, 6, 31, 32, 33, 37, 64, 65, 73, 96, 97, 102)
 EDGE_F = (1, 3, 40, 250, 1250, 10_000, 10_001)
-TIMED = [(37, F) for F in (10_000, 1500, 1250, 250, 40, 1)] + [(73, F) for F in (10_000, 1250, 40)]
+FLY_SHAPES = ((102, 22_800), (102, 180_000))
+F64_SAMPLE = 3000  # systems of a fly shape solved in float64, spread over the batch
+TIMED = [(37, F) for F in (10_000, 1500, 1250, 250, 40, 1)] + [(73, F) for F in (10_000, 1250, 40)] + list(FLY_SHAPES)
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -269,12 +283,14 @@ def _stream_ms(fn, reps: int) -> float:
 
 
 def _ptxas_summary(log: str) -> list[str]:
-    """One entry per kernel instantiation (N): registers, spills, stack."""
+    """One entry per kernel instantiation: registers, spills, stack;
+    ``spd_chol_warp_kernel<N>`` as "N=...", the layout for n past 96
+    (``spd_chol_wide_kernel<P3>``, P3 rows in shared memory) as "wide P3=..."."""
     out, name = [], None
     for ln in log.splitlines():
-        m = re.search(r"ILi(\d+)E", ln)  # spd_chol_warp_kernel<N>
+        m = re.search(r"ILi(\d+)E", ln)
         if "Compiling entry function" in ln and m:
-            name = f"N={m[1]}"
+            name = f"wide P3={m[1]}" if "wide_kernel" in ln else f"N={m[1]}"
         elif name and "spill" in ln:
             stack = ln.strip().split(" bytes stack frame")[0]
             spills = ln.split(",")[1].strip().split(" ")[0] + "/" + ln.split(",")[2].strip().split(" ")[0]
@@ -285,6 +301,23 @@ def _ptxas_summary(log: str) -> list[str]:
     return out
 
 
+def _kernel_errors(spd, A, g, lam, f64_rows=None) -> tuple[float, float, torch.Tensor, torch.Tensor]:
+    """(max |x - plain| / max |plain|, max |x - x64| / max |x64|, x, plain): the
+    kernel against its plain version on every system, and against a float64
+    solve on the systems ``f64_rows`` (all of them by default)."""
+    x = spd.spd_solve(A, g, lam)
+    plain = spd.spd_solve_plain(A, g, lam)
+    rows = slice(None) if f64_rows is None else f64_rows
+    A64 = A[rows].double()
+    if lam is not None:
+        A64 = A64 + lam[rows].double()[:, None, None] * torch.eye(A.shape[-1], device=A.device, dtype=torch.float64)
+    x64 = torch.linalg.solve(A64, g[rows].double())
+    torch.cuda.synchronize()
+    err_plain = float((x - plain).abs().max() / plain.abs().max())
+    err_f64 = float((x[rows].double() - x64).abs().max() / x64.abs().max())
+    return err_plain, err_f64, x, plain
+
+
 def phase_kernel(spd, device) -> dict:
     """The kernel against its plain version and float64; NaN isolation."""
     from _torch_spd_cases import indefinite_batch, spd_systems
@@ -293,31 +326,42 @@ def phase_kernel(spd, device) -> dict:
     gen = torch.Generator(device=device).manual_seed(0)
     worst = {"plain": 0.0, "f64": 0.0}
     main_err = None
+
+    def held(n, F, lam_, err_plain, err_f64):
+        if not (err_plain < KERNEL_REL_TOL and err_f64 < KERNEL_REL_TOL):
+            raise AssertionError(f"kernel disagrees at n={n} F={F} lam={lam_ is not None}: "
+                                 f"{err_plain:.3e} vs plain, {err_f64:.3e} vs f64 (bound {KERNEL_REL_TOL})")
+        worst["plain"] = max(worst["plain"], err_plain)
+        worst["f64"] = max(worst["f64"], err_f64)
+
     for n in EDGE_N + (max_n,):
-        eye = torch.eye(n, device=device, dtype=torch.float64)
         for F in EDGE_F:
             A, g, lam = spd_systems(F, n, gen, device)
             for lam_ in (None, lam):
-                x = spd.spd_solve(A, g, lam_)
-                plain = spd.spd_solve_plain(A, g, lam_)
-                A64 = A.double() + (0 if lam_ is None else lam_.double()[:, None, None] * eye)
-                x64 = torch.linalg.solve(A64, g.double())
-                torch.cuda.synchronize()
-                err_plain = float((x - plain).abs().max() / plain.abs().max())
-                err_f64 = float((x.double() - x64).abs().max() / x64.abs().max())
-                if not (err_plain < KERNEL_REL_TOL and err_f64 < KERNEL_REL_TOL):
-                    raise AssertionError(f"kernel disagrees at n={n} F={F} lam={lam_ is not None}: "
-                                         f"{err_plain:.3e} vs plain, {err_f64:.3e} vs f64 (bound {KERNEL_REL_TOL})")
-                worst["plain"] = max(worst["plain"], err_plain)
-                worst["f64"] = max(worst["f64"], err_f64)
+                err_plain, err_f64, x, plain = _kernel_errors(spd, A, g, lam_)
+                held(n, F, lam_, err_plain, err_f64)
                 if (n, F) == (37, 10_000) and lam_ is not None:
                     main_err = float((x - plain).abs().max())
             del A, g, lam
         print(f"kernel n={n:2d}: F in {EDGE_F}, lam and none: ok")
+    for n, F in FLY_SHAPES:  # every system against plain, F64_SAMPLE of them against float64
+        A, g, lam = spd_systems(F, n, gen, device)
+        rows = torch.arange(0, F, max(1, F // F64_SAMPLE), device=device)
+        for lam_ in (None, lam):
+            before = spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)]
+            err_plain, err_f64, x, _ = _kernel_errors(spd, A, g, lam_, rows)
+            held(n, F, lam_, err_plain, err_f64)
+            if spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)] != before + 1 or not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"kernel at n={n} F={F}: not one launch at width {spd.dispatch_width(n)}, "
+                                     f"or x not finite")
+            print(f"kernel n={n} F={F} lam={lam_ is not None} (the fly's ik): vs plain {err_plain:.3e}, "
+                  f"vs f64 {err_f64:.3e} on {len(rows)} systems")
+        del A, g, lam, x
+        torch.cuda.empty_cache()
     print(f"kernel: worst rel err vs plain {worst['plain']:.3e}, vs f64 {worst['f64']:.3e} "
-          f"over n in {EDGE_N + (max_n,)} (bound {KERNEL_REL_TOL})")
+          f"over n in {EDGE_N + (max_n,)} and the fly's shapes {FLY_SHAPES} (bound {KERNEL_REL_TOL})")
 
-    for n in (6, 37, 73):
+    for n in (6, 37, 73, 102):
         A, g, mid = indefinite_batch(9, n, seed=n)
         A, g = (torch.as_tensor(a, dtype=torch.float32, device=device) for a in (A, g))
         fin = torch.isfinite(spd.spd_solve(A, g)).all(dim=1).tolist()
@@ -543,15 +587,7 @@ def _capturing(keep):
 def _kernel_vs_plain(spd, A, g, lam) -> tuple[float, float, bool]:
     """The kernel against its plain version and a float64 solve on captured
     systems: (max |dx| / max |x| vs plain, the same vs float64, x finite)."""
-    n = A.shape[-1]
-    x = spd.spd_solve_cuda(A, g, lam)
-    plain = spd.spd_solve_plain(A, g, lam)
-    A64 = A.double() + (0 if lam is None else lam.double()[:, None, None] * torch.eye(n, dtype=torch.float64,
-                                                                                     device=A.device))
-    x64 = torch.linalg.solve(A64, g.double())
-    torch.cuda.synchronize()
-    err_plain = float((x - plain).abs().max() / plain.abs().max())
-    err_f64 = float((x.double() - x64).abs().max() / x64.abs().max())
+    err_plain, err_f64, x, _ = _kernel_errors(spd, A, g, lam)
     return err_plain, err_f64, bool(torch.isfinite(x).all())
 
 
@@ -1560,6 +1596,60 @@ def phase_surface(spd, device, main_run, driver_run, smi: str) -> dict:
     return {"launches": demo_launches}
 
 
+# Phase 16: the tethered fly (nv 102) at the benchmark cell's size, one
+# session: every pass runs eager (F > the LM graphs' bound), 14 coarse and 6
+# fine LM iterations, each one launch of the wide kernel at width 104.
+FLY_CELL = "fly-lm.ik-session"
+FLY_SEED = 16
+FLY_LAUNCHES = {104: 20}
+
+
+def phase_fly(spd, device, smi: str) -> dict:
+    """The fly's ik through ``Stac.ik_only`` as the benchmark's ``ik_fixed``
+    job runs it (its first fixed session, 600 clips of 300 frames): launches
+    by width, the poses judged by the float64 reference against the cell's
+    limits (true mm), and K1 on the coarse pass's captured systems against
+    its plain version and float64."""
+    from portbench.harness import check, spec
+    from portbench.jobs import ik_fixed
+
+    cell = spec.Cell(FLY_CELL)
+    cell.traffic["pool"] = 1
+    job, make_s = _sync_time(lambda: ik_fixed.Job(cell, FLY_SEED, device))
+    per_clip, stride = int(job.cfg["stac"]["n_frames_per_clip"]), int(job.cfg["stac"]["ik_hier_stride"])
+    coarse_f = int(cell.traffic["clips"]) * -(-per_clip // stride)  # every stride-th frame of each clip
+    with _capturing(lambda A, lam: A.shape[0] == coarse_f and lam is not None) as captured:
+        _, warm_s = _sync_time(lambda: job.call(0))  # first call: the cell's shapes warmed
+    spd.KERNEL_LAUNCHES = 0
+    spd.LAUNCHES_BY_WIDTH.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    record, ik_s = _sync_time(lambda: job.call(0))
+    launches, by_width = spd.KERNEL_LAUNCHES, dict(spd.LAUNCHES_BY_WIDTH)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    A, g, lam = captured[0]
+    c_plain, c_f64, c_fin = _kernel_vs_plain(spd, A, g, lam)
+    del captured, A, g, lam
+    job.release()
+    res = job.evaluate([record])
+    ok, checks = check.judge(res["numbers"], cell.limits)
+    frames = job.frames_per_call
+    print(f"fly: session {tuple(job.kp[0].shape)} made in {make_s:.3f} s; ik of {frames} frames on the card ({smi}) "
+          f"in {ik_s:.3f} s ({frames / ik_s:.1f} frames/s; first call {warm_s:.3f} s), launches {launches} by width "
+          f"{by_width}, peak allocated in the call {peak_gb:.2f} GB; residual {res['e2e']['residual_mm']!r} true mm; "
+          + ", ".join(f"{k} {c['value']!r} (limit {c['limit']!r})" for k, c in checks.items()))
+    print(f"fly: K1 on the coarse pass's systems (F = {coarse_f}, n = 102) vs plain {c_plain:.3e}, vs f64 {c_f64:.3e}")
+    _check_all("fly", {
+        f"ik launched the kernel {sum(FLY_LAUNCHES.values())} times, by width {FLY_LAUNCHES}":
+            launches == sum(FLY_LAUNCHES.values()) and by_width == FLY_LAUNCHES,
+        "qpos finite": bool(np.isfinite(record[1]).all()),
+        "poses within the cell's limits": ok,
+        "K1 within bound of plain and f64 on the coarse pass's systems":
+            c_plain < KERNEL_REL_TOL and c_f64 < KERNEL_REL_TOL and c_fin,
+    })
+    torch.cuda.empty_cache()
+    return {"launches": launches, "by_width": by_width}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU", file=sys.stderr)
@@ -1604,6 +1694,7 @@ def main() -> int:
     model = phase_model(spd, device, bundle, main_run, drv, smi)
     print(f"phases 11-14 (distributed, options, profiling, model) in {time.perf_counter() - t_new:.1f} s")
     surface = phase_surface(spd, device, main_run, drv, smi)
+    fly = phase_fly(spd, device, smi)
 
     # launches: every path's run (the rank processes' counts included). ms, plain_ms and
     # library_ms: time per call on the stream, as since the first version of
@@ -1613,7 +1704,7 @@ def main() -> int:
                "stall": opts["stall"], "wire16": opts["wire16"], "chunked": opts["chunked"],
                "segmented": opts["segmented"], "profiling": prof["launches"], "model": model["launches"],
                "demo": surface["launches"]}
-    t = times[(37, 10_000)]
+    t, w = times[(37, 10_000)], times[FLY_SHAPES[-1]]
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [{
         "name": "spd_chol_solve_f32",
@@ -1631,6 +1722,24 @@ def main() -> int:
         "device_ms": t["kernel"]["device"],
         "plain_device_ms": t["plain"]["device"],
         "library_device_ms": t["library"]["device"],
+    }, {  # the layout for n past 96; times at the fly's fine pass
+        "name": "spd_chol_wide_kernel",
+        "route": "cuda",
+        "source": "stac_mjx_tpu_torch/csrc/spd_chol.cu",
+        "replaces": "stac_mjx_tpu/ops/spd.py:42",
+        "launches": fly["launches"],
+        "launches_by_path": {"fly": fly["launches"]},
+        "launches_by_width": fly["by_width"],
+        "n": FLY_SHAPES[-1][0],
+        "F": FLY_SHAPES[-1][1],
+        "ms": w["kernel"]["stream"],
+        "plain_ms": w["plain"]["stream"],
+        "bound_ms": w["bound_ms"],
+        "bound_by": w["bound_by"],
+        "library_ms": w["library"]["stream"],
+        "device_ms": w["kernel"]["device"],
+        "plain_device_ms": w["plain"]["device"],
+        "library_device_ms": w["library"]["device"],
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0

@@ -70,13 +70,43 @@
 //  - Registers: N = 80 (n = 73) holds 32 + 64 + 80 row entries per lane,
 //    under the 255 limit without spills; chip_smoke.py prints ptxas'
 //    registers and spills for every instantiation.
+//
+// n from 97 to 128 (spd_chol_wide_kernel, templated on P3 = 8, 16, 32): a
+// fourth row block does not fit. At N = 104 the lane would hold
+// 32 + 64 + 96 + 104 = 296 row entries, over the 255-register limit, and the
+// lower triangle at n = 128 is 258 floats a lane even if spread evenly. So
+// rows 0..95 stay in registers exactly as at N = 96 (the same shifting
+// window, three row blocks), and rows 96..n-1 (at most 32) stay in shared
+// memory, updated there in place:
+//  - Shared memory per warp: rows 0..95 of the staged A packed by rows
+//    (row i at i(i+1)/2, 4,656 floats), which take L's rows in place as
+//    their owner computes them (only the owner touches a row until the back
+//    substitution); rows 96..n-1 by columns, P3 rows a column at the odd
+//    stride P3 + 1 (P3 = 8, 16 or 32, a power of two >= n - 96), so lanes
+//    reading one column, or one row across columns, hit distinct banks; the
+//    two column buffers. 23.4 KB a warp at n = 102, so two CTAs (eight
+//    warps, the register limit at 255 a thread) share an SM; 36.6 KB at
+//    n = 128. The square staging of N <= 96 would need 44-68 KB a warp.
+//  - Column step j: lane r keeps row 96 + r's pivot-column entry, right-hand
+//    side and next diagonal as a fourth row block, read from and written to
+//    shared memory, so the pivot chain and look-ahead are those of N <= 96.
+//    The rank-1 update of the shared rows is spread over the whole warp:
+//    lane t updates row t mod P3 in every (32 / P3)-th column, so at n = 102
+//    (six shared rows) a lane updates a quarter of the trailing columns
+//    instead of all of them. One more __syncwarp per column publishes it.
+//  - Batches of 8 columns in the register update (16 at N <= 96) keep the
+//    batch's loads within the register budget the fourth block's scalars
+//    take.
+//  - Back substitution as at N <= 96, L's row j read from the packed rows or
+//    the column-major block, both conflict-free across lanes.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kWarps = 4;  // systems (one warp each) per CTA
-constexpr int kMaxN = 96;
+constexpr int kMaxN = 96;   // the largest n with every row in registers
+constexpr int kWideMaxN = 128;  // the largest n: rows past kMaxN in shared memory
 constexpr int kBatch = 16;  // columns per guarded batch of the Schur update
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -280,9 +310,194 @@ int launch(const float* A, const float* g, const float* lam, float* x, int F, in
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- n > 96
+
+__host__ __device__ constexpr int tri(int i) { return i * (i + 1) / 2; }
+// Per-warp shared memory, in floats (each part a multiple of 4): the packed
+// rows 0..kMaxN-1, the column-major rows kMaxN..n-1 (P3 a column, n columns
+// rounded up to 4), two column buffers.
+__host__ __device__ constexpr int wide_cols(int n) { return (n + 3) / 4 * 4; }
+__host__ __device__ constexpr int wide_floats(int n, int P3) {
+  return tri(kMaxN) + wide_cols(n) * (P3 + 1) + 2 * col_floats(4);
+}
+constexpr int kWideBatch = 8;  // columns per guarded batch of the register update
+
+// The lower triangle of one system (n > kMaxN) into the packed rows P and
+// the column-major block Q (row kMaxN + r of column c at Q[c * QS + r]).
+template <int QS>
+__device__ __forceinline__ void stage_wide(float* P, float* Q, const float* Af, int n, int lane) {
+  int r = 0, c = lane;  // n > 32: t = lane is in row 0
+  for (int t = lane; t < n * n; t += 32) {
+    if (c <= r) cp_async4(r < kMaxN ? P + tri(r) + c : Q + c * QS + (r - kMaxN), Af + t);
+    c += 32;
+    if (c >= n) {
+      c -= n;
+      ++r;
+    }
+  }
+}
+
+template <int P3>  // rows a column of the shared block holds: a power of two >= n - kMaxN
+__global__ void __launch_bounds__(kWarps * 32)
+spd_chol_wide_kernel(const float* __restrict__ A, const float* __restrict__ g,
+                     const float* __restrict__ lam, float* __restrict__ x, int F,
+                     int n) {
+  constexpr int R = 3;                 // register row blocks: rows 0..95
+  constexpr int QS = P3 + 1;           // its odd column stride
+  constexpr int G = 32 / P3;           // lanes sharing one shared row in the update
+  constexpr int CB = col_floats(4);    // floats of one column buffer
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long stride = (long)gridDim.x * kWarps;
+  long f = (long)blockIdx.x * kWarps + warp;
+  if (f >= F) return;
+  float* P = smem + warp * wide_floats(n, P3);
+  float* Q = P + tri(kMaxN);
+  float* cbuf = Q + wide_cols(n) * QS;
+  const int i3 = kMaxN + lane;  // the shared row this lane owns (if < n)
+
+  stage_wide<QS>(P, Q, A + f * n * n, n, lane);
+  for (; f < F; f += stride) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+
+    // Register rows as at N = 96 (every one < n), lam on each diagonal; the
+    // owner of a shared row puts lam on its diagonal in place.
+    const float lam_f = lam ? lam[f] : 0.0f;
+    float a[R][kMaxN];
+    float y[R + 1];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int i = lane + 32 * k;
+      y[k] = g[f * n + i];
+      P[tri(i) + i] += lam_f;
+#pragma unroll
+      for (int c = 0; c < width(kMaxN, k); ++c) a[k][c] = P[tri(i) + c];
+    }
+    y[R] = i3 < n ? g[f * n + i3] : 0.0f;
+    if (i3 < n) Q[i3 * QS + lane] += lam_f;
+
+    float dv[R + 1], rinvk[R + 1];
+#pragma unroll
+    for (int k = 0; k <= R; ++k) rinvk[k] = 0.0f;
+    float d = __shfl_sync(kFull, a[0][0], 0);
+    float ynext = __shfl_sync(kFull, y[0], 0);
+    for (int j = 0; j < n; ++j) {
+      const float rinv = rsqrtf(d);  // NaN when d < 0, inf when d == 0
+      const float yj = ynext * rinv;
+      float* cb = cbuf + (j & 1) * CB;  // cb[c] = L[j + 1 + c, j]
+      float l[R + 1];
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const int i = lane + 32 * k;
+        l[k] = a[k][0] * rinv;
+        dv[k] = a[k][1] - l[k] * l[k];
+        const float yk = y[k] - l[k] * yj;
+        y[k] = i > j ? yk : (i == j ? yj : y[k]);
+        rinvk[k] = i == j ? rinv : rinvk[k];
+        cb[i > j ? i - j - 1 : CB - 1] = l[k];
+        if (i >= j) P[tri(i) + j] = l[k];  // L's row i, in place of A's
+      }
+      {  // the shared row: its column-j entry in place, zero past n
+        const float aj = i3 < n ? Q[j * QS + lane] : 0.0f;
+        const float an = i3 < n && j + 1 < n ? Q[(j + 1) * QS + lane] : 0.0f;
+        l[R] = aj * rinv;
+        dv[R] = an - l[R] * l[R];
+        const float yk = y[R] - l[R] * yj;
+        y[R] = i3 > j ? yk : (i3 == j ? yj : y[R]);
+        rinvk[R] = i3 == j ? rinv : rinvk[R];
+        cb[i3 > j ? i3 - j - 1 : CB - 1] = l[R];
+        if (i3 < n) Q[j * QS + lane] = l[R];
+      }
+      {  // look ahead: the pivot and right-hand side of step j + 1
+        const int kn = (j + 1) >> 5;
+        float dsel = dv[0], ysel = y[0];
+#pragma unroll
+        for (int k = 1; k <= R; ++k) {
+          if (kn == k) {
+            dsel = dv[k];
+            ysel = y[k];
+          }
+        }
+        d = __shfl_sync(kFull, dsel, (j + 1) & 31);
+        ynext = __shfl_sync(kFull, ysel, (j + 1) & 31);
+      }
+      __syncwarp();
+      // Rank-1 update of the register rows, as at N <= 96.
+      const int rem = n - 1 - j;
+#pragma unroll
+      for (int b = 0; b < kMaxN; b += kWideBatch) {
+        if (b < rem) {
+          float lc[kWideBatch];
+#pragma unroll
+          for (int q = 0; q < kWideBatch / 4; ++q) {
+            const float4 v = *reinterpret_cast<const float4*>(cb + b + 4 * q);
+            lc[4 * q] = v.x;
+            lc[4 * q + 1] = v.y;
+            lc[4 * q + 2] = v.z;
+            lc[4 * q + 3] = v.w;
+          }
+#pragma unroll
+          for (int u = 0; u < kWideBatch; ++u) {
+#pragma unroll
+            for (int k = 0; k < R; ++k) {
+              const int c = b + u;
+              if (c + 1 < width(kMaxN, k)) a[k][c] = a[k][c + 1] - l[k] * lc[u];
+            }
+          }
+        }
+      }
+      {  // rank-1 update of the shared rows: lane t takes row t mod P3
+        const int r = lane & (P3 - 1);
+        const float lr = __shfl_sync(kFull, l[R], r);  // L[kMaxN + r, j], 0 past n
+        for (int c = j + 1 + lane / P3; c < n; c += G) Q[c * QS + r] -= lr * cb[c - j - 1];
+      }
+      __syncwarp();
+    }
+
+    // Back substitution L^T x = y, column-oriented, as at N <= 96.
+    for (int j = n - 1; j >= 0; --j) {
+      const int kj = j >> 5;
+      float xv = y[0] * rinvk[0];
+#pragma unroll
+      for (int k = 1; k <= R; ++k) {
+        if (kj == k) xv = y[k] * rinvk[k];
+      }
+      const float xj = __shfl_sync(kFull, xv, j & 31);
+      const float* Lj = P + tri(min(j, kMaxN - 1));  // L's row j (< kMaxN), packed
+#pragma unroll
+      for (int k = 0; k <= R; ++k) {
+        const int c = lane + 32 * k;
+        const float lcj = j < kMaxN ? Lj[min(c, j)] : Q[min(c, n - 1) * QS + (j - kMaxN)];
+        y[k] = c < j ? y[k] - lcj * xj : (c == j ? xj : y[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k <= R; ++k) {
+      const int i = lane + 32 * k;
+      if (i < n) x[f * n + i] = y[k];
+    }
+    __syncwarp();  // L is read: the areas may take the next system
+    if (f + stride < F) stage_wide<QS>(P, Q, A + (f + stride) * n * n, n, lane);
+  }
+}
+
+template <int P3>
+int launch_wide(const float* A, const float* g, const float* lam, float* x, int F, int n,
+                cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kWarps * wide_floats(n, P3);
+  const cudaError_t e = cudaFuncSetAttribute(
+      spd_chol_wide_kernel<P3>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = (F + kWarps - 1) / kWarps;
+  spd_chol_wide_kernel<P3><<<grid, kWarps * 32, smem, stream>>>(A, g, lam, x, F, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-extern "C" int spd_chol_max_n() { return kMaxN; }
+extern "C" int spd_chol_max_n() { return kWideMaxN; }
 
 // A (F, n, n), g (F, n), lam (F,) or null, x (F, n): f32, contiguous, on the
 // device. Launches on `stream` and returns cudaGetLastError() (0 = launched).
@@ -290,7 +505,7 @@ extern "C" int spd_chol_solve_f32(const float* A, const float* g,
                                   const float* lam_or_null, float* x, int F,
                                   int n, void* stream) {
   if (F == 0) return 0;
-  if (F < 0 || n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  if (F < 0 || n <= 0 || n > kWideMaxN) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch ((n + 7) / 8) {
     case 1: return launch<8>(A, g, lam_or_null, x, F, n, st);
@@ -304,6 +519,9 @@ extern "C" int spd_chol_solve_f32(const float* A, const float* g,
     case 9: return launch<72>(A, g, lam_or_null, x, F, n, st);
     case 10: return launch<80>(A, g, lam_or_null, x, F, n, st);
     case 11: return launch<88>(A, g, lam_or_null, x, F, n, st);
-    default: return launch<96>(A, g, lam_or_null, x, F, n, st);
+    case 12: return launch<96>(A, g, lam_or_null, x, F, n, st);
+    case 13: return launch_wide<8>(A, g, lam_or_null, x, F, n, st);
+    case 14: return launch_wide<16>(A, g, lam_or_null, x, F, n, st);
+    default: return launch_wide<32>(A, g, lam_or_null, x, F, n, st);
   }
 }

@@ -71,12 +71,21 @@ def resolve_mjcf(model_cfg: Mapping, base_path: str | Path | None = None) -> Pat
     return xml if xml.exists() else resolve_asset(model_cfg["MJCF_PATH"], base_path)
 
 
+# Mass and inertia bound of a model whose meshes were pruned: above mujoco's
+# mjMINVAL (1e-15), below any body mass a model is built with.
+_PRUNED_MASS_BOUND = 1e-12
+
+
 def _prune_missing_meshes(spec, model_dir: Path) -> None:
     """Drop mesh assets whose files don't exist, and the geoms that use them.
 
     Some model trees ship MJCFs that name meshes never committed (the
     fruitfly's head_body.obj); meshes are visual only for STAC, so pruning
-    them keeps the kinematics and lets the spec compile."""
+    them keeps the kinematics and lets the spec compile. A body whose mass
+    came from its meshes alone (every moving body of a fly MJCF shipped
+    without its meshes) would then be massless, which mujoco refuses to
+    compile: where the MJCF sets no mass or inertia bound, a bound of
+    _PRUNED_MASS_BOUND is set, which changes no body frame."""
     meshdir = Path(spec.meshdir) if spec.meshdir else Path(".")
     if not meshdir.is_absolute():
         meshdir = model_dir / meshdir
@@ -91,6 +100,8 @@ def _prune_missing_meshes(spec, model_dir: Path) -> None:
     for mesh in list(spec.meshes):
         if mesh.name in missing:
             spec.delete(mesh)
+    spec.compiler.boundmass = spec.compiler.boundmass or _PRUNED_MASS_BOUND
+    spec.compiler.boundinertia = spec.compiler.boundinertia or _PRUNED_MASS_BOUND
 
 
 def build_body_spec(xml_path: str | Path, cfg_model: Mapping):

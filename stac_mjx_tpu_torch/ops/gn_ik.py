@@ -91,12 +91,14 @@ class _LMGraph:
         self.device = args[4].device  # q0's
         self.static = [t.detach().clone(memory_format=torch.contiguous_format) for t in _tensors(args)]
         static_args = _args(args[0], self.static)
-        before = spd.KERNEL_LAUNCHES
+        before, before_width = spd.KERNEL_LAUNCHES, spd.LAUNCHES_BY_WIDTH.copy()
         with annotate("lm.capture"):
             self.out = self._capture(lambda: solve(*static_args))
         # A capture launches nothing; each replay launches what it captured.
         self.launches = spd.KERNEL_LAUNCHES - before
+        self.launches_by_width = spd.LAUNCHES_BY_WIDTH - before_width
         spd.KERNEL_LAUNCHES = before
+        spd.LAUNCHES_BY_WIDTH.subtract(self.launches_by_width)
 
     def _capture(self, run) -> PGResult:
         # thread_local: the process group's watchdog thread may query its
@@ -115,6 +117,7 @@ class _LMGraph:
                 s.copy_(t)
             self._replay()
             spd.KERNEL_LAUNCHES += self.launches
+            spd.LAUNCHES_BY_WIDTH.update(self.launches_by_width)
             return PGResult(*(o.clone() for o in self.out))
 
 

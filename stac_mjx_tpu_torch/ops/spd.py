@@ -7,22 +7,29 @@ the batched LM calls once per iteration, and ``spd_solve_pallas``, which the
 single-frame flat LM calls). The TPU's frames-in-lanes layout and 128-frame
 padding are gone: systems stay (F, n, n) row-major.
 
-On a CUDA tensor the wrapper launches ``csrc/spd_chol.cu`` (f32 only) or
-raises. On a CPU tensor it takes the plain PyTorch version,
-``cholesky_ex`` + ``cholesky_solve``, which puts NaN in x wherever the
-factorization failed, as the kernel and JAX's ``cho_factor`` do.
+On a CUDA tensor the wrapper launches ``csrc/spd_chol.cu`` (f32 only, n up
+to 128: every row in registers up to n = 96, the rows past 96 in shared
+memory above) or raises; each launch runs inside a ``spd`` span
+(``utils.profiling.annotate``). On a CPU tensor it takes the plain PyTorch
+version, ``cholesky_ex`` + ``cholesky_solve``, which puts NaN in x wherever
+the factorization failed, as the kernel and JAX's ``cho_factor`` do.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from stac_mjx_tpu_torch.ops import _build
+from stac_mjx_tpu_torch.utils.profiling import annotate
 
 # Launches of the CUDA kernel since the last reset (plain-version calls don't count).
 KERNEL_LAUNCHES = 0
+# The same launches by the kernel's dispatch width: n rounded up to 8, the
+# case of spd_chol_solve_f32's switch that launched them.
+LAUNCHES_BY_WIDTH: collections.Counter = collections.Counter()
 
 _fn = None
 _max_n = 0
@@ -40,6 +47,13 @@ def _kernel():
         _max_n = int(lib.spd_chol_max_n())
         _fn = fn
     return _fn, _max_n
+
+
+def dispatch_width(n: int) -> int:
+    """The case of the kernel's dispatch that solves systems of size n: n
+    rounded up to 8 (``spd_chol_warp_kernel<N>`` at N = 8 ... 96; past 96,
+    ``spd_chol_wide_kernel<P3>`` with P3 = 8, 16, 32 shared rows)."""
+    return (n + 7) // 8 * 8
 
 
 def spd_solve_plain(
@@ -80,7 +94,7 @@ def spd_solve_cuda(
     x = torch.empty_like(g)
     if F == 0:
         return x
-    with torch.cuda.device(A.device):
+    with torch.cuda.device(A.device), annotate("spd"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             A.data_ptr(),
@@ -94,6 +108,7 @@ def spd_solve_cuda(
     if rc != 0:
         raise RuntimeError(f"spd_chol_solve_f32 launch failed: cudaError {rc}")
     KERNEL_LAUNCHES += 1
+    LAUNCHES_BY_WIDTH[dispatch_width(n)] += 1
     return x
 
 

@@ -6,12 +6,19 @@ where jax is absent; ``tests/conftest.py`` imports jax, so skip it there:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from _torch_spd_cases import indefinite_batch, spd_systems
 from stac_mjx_tpu_torch.ops import spd
+
+REPO = Path(__file__).resolve().parent.parent
+if str(REPO) not in sys.path:  # portbench/ sits beside the package
+    sys.path.insert(0, str(REPO))
 
 
 @pytest.fixture
@@ -22,9 +29,11 @@ def cuda_device():
 
 
 # Register-layout edges of the kernel (one row block ends at 32 rows, the
-# shipped sizes are 6, 37 and 73) and batch sizes that are not a multiple of
-# the systems per CTA; "max" is the kernel's own largest n.
-EDGE_N = [1, 6, 31, 32, 33, 37, 64, 65, 73, "max"]
+# shipped sizes are 6, 37, 73 and 102; 96 is the largest all-register
+# instantiation, 97 the first with rows in shared memory) and batch sizes
+# that are not a multiple of the systems per CTA; "max" is the kernel's own
+# largest n.
+EDGE_N = [1, 6, 31, 32, 33, 37, 64, 65, 73, 96, 97, 102, "max"]
 EDGE_F = [1, 3, 40, 250, 1250, 10_000, 10_001]
 
 
@@ -265,3 +274,105 @@ def test_stac_graphed_bitwise_as_eager(cuda_device, monkeypatch):
         assert got.keys() == want.keys()
         for k in want:
             assert np.array_equal(got[k], want[k]), k
+
+
+# The kernel's outputs at the critter's n (37) and the rodent's (73) on fixed
+# systems (``fixed_systems(1250, n, seed=n)``, with lam) as they were before
+# the layout for n past 96 was added: the SHA-256 of x's float32 bytes,
+# recorded on an NVIDIA H100 80GB HBM3 from the kernel source without that
+# layout (sm_90a, the port's nvcc flags). The new layout's kernels sit beside
+# these instantiations and leave them as they were.
+BEFORE_WIDE = {37: "91049865bf6246fc3c9e954b81a2c3d29c73152976a4ae0010466f4a5ba8d3b3",
+               73: "0067819a3cce28e69154ba529241f0807946850202156d1144542c662b0a99d7"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", sorted(BEFORE_WIDE))
+def test_cuda_kernel_is_bitwise_as_before_the_wide_layout(cuda_device, n):
+    """x bitwise as before, one launch a call, counted under its
+    dispatch width (n rounded up to 8)."""
+    import hashlib
+
+    from _torch_spd_cases import fixed_systems
+
+    A, g, lam = (t.to(cuda_device) for t in fixed_systems(1250, n, seed=n))
+    before, width_before = spd.KERNEL_LAUNCHES, spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)]
+    x = spd.spd_solve(A, g, lam)
+    assert hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest() == BEFORE_WIDE[n]
+    assert spd.KERNEL_LAUNCHES == before + 1
+    assert spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)] == width_before + 1
+
+
+# The wide layout's sizes: its first n, the tethered fly's, the first of the
+# second width, one inside the third, its last; F from one system to the
+# fly's ik passes (22,800 coarse, 180,000 fine).
+WIDE_N = [97, 102, 104, 113, 128]
+WIDE_F = [1, 1000, 22_800, 180_000]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", WIDE_N)
+def test_cuda_wide_kernel_matches_the_float64_reference(cuda_device, n):
+    """The rows past 96 in shared memory: x against the benchmark's float64
+    reference (``portbench/reference/spd.py``) on up to 3,000 systems spread
+    over the batch, every x finite. Tolerance max |x - x64| / max |x64| <
+    1e-4: the float32 Cholesky in another order than float64's (the bound
+    the kernel has been held to since its first version, which the LM's
+    accept test needs). A rounded to bfloat16 before the float64 solve (a
+    stand-in one precision below) misses it by over ten times."""
+    from portbench.reference import spd as ref
+
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    for F in WIDE_F:
+        A, g, lam = spd_systems(F, n, gen, cuda_device)
+        idx = torch.arange(0, F, max(1, F // 3000), device=cuda_device)
+        for l in (lam, None):
+            before = spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)]
+            x = spd.spd_solve(A, g, l)
+            assert spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)] == before + 1
+            x64 = ref.spd_solve(A[idx], g[idx], None if l is None else l[idx])
+            assert bool(torch.isfinite(x).all()), (n, F)
+            assert ref.relative_error(x[idx], x64) < 1e-4, (n, F, l is None)
+            bf16 = ref.spd_solve(A[idx].bfloat16().float(), g[idx], None if l is None else l[idx])
+            assert ref.relative_error(bf16, x64) > 1e-3, (n, F)
+        del A, g, lam
+        torch.cuda.empty_cache()
+    A, g, mid = indefinite_batch(9, n, seed=n)
+    x = spd.spd_solve(*(torch.as_tensor(a, dtype=torch.float32, device=cuda_device) for a in (A, g))).cpu()
+    assert [bool(v) for v in torch.isfinite(x).all(dim=1)] == [f != mid for f in range(9)]
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_n_129(cuda_device):
+    """128 is the largest n: the wrapper raises past it, and the C function
+    returns cudaErrorInvalidValue (1) without launching."""
+    fn, max_n = spd._kernel()
+    assert max_n == 128
+    A, g = torch.eye(129, device=cuda_device)[None].contiguous(), torch.ones(1, 129, device=cuda_device)
+    before = spd.KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="n <= 128"):
+        spd.spd_solve(A, g)
+    x = torch.empty_like(g)
+    rc = fn(A.data_ptr(), g.data_ptr(), None, x.data_ptr(), 1, 129,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc == 1 and spd.KERNEL_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_fly_ik_on_the_card(cuda_device):
+    """The tethered fly's ik on the card with the benchmark cell's settings
+    (the fixed-root lockstep LM, hierarchical 8/6, all eager): 20 launches
+    of the wide instantiation (14 coarse, 6 fine), no root solve, and poses
+    the float64 reference judges within the cell's limits."""
+    from portbench.harness import check, spec
+    from portbench.jobs import ik_fixed
+
+    cell = spec.Cell("fly-lm.ik-session")
+    cell.traffic.update(clips=40, pool=1)
+    job = ik_fixed.Job(cell, 7, cuda_device)
+    before = spd.LAUNCHES_BY_WIDTH.copy()
+    record = job.call(0)
+    assert dict(spd.LAUNCHES_BY_WIDTH - before) == {104: 20}
+    res = job.evaluate([record])
+    ok, checks = check.judge(res["numbers"], cell.limits)
+    assert ok, checks
