@@ -105,13 +105,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``recompute_errors`` on phase 10's ik artifact against the CPU in
    float64; ``firstparty.write_assets`` byte-equal to the checked-in files.
    The phase's wall and the script's are printed on lines of their own;
-16. fly: the tethered fly (``assets/fly_tethered_bundle.npz``, nv 102) at
+16. fk: the FK kernel (``csrc/fk_jump.cu``): ptxas' registers and spills,
+   then at the cells' shapes (the fly at F = 22,800 and 180,000, the critter
+   at 23,040 and 180,000) and the main path's ik shapes (1,280 and 10,000;
+   float32, seeded poses around qpos0) the kernel against the plain body
+   (every output within FK_REL of the model's length scale), and in turns
+   the kernel and the plain body timed on the stream and by device time
+   (torch.profiler) beside the kernel's bound (bytes: qpos read once, the
+   five outputs written once). It runs right after phase 7: later in the
+   script torch.profiler records less and less of the card's activity
+   (phase 15's tracing sees ~87% of its launches, and right after phase 15
+   it saw none; a fresh process records with the card full and after
+   phase 17 alike);
+17. fly: the tethered fly (``assets/fly_tethered_bundle.npz``, nv 102) at
    the benchmark cell's size through ``Stac.ik_only`` as the benchmark's
    ``ik_fixed`` job runs it (one fixed session, 180,000 frames, every pass
    eager): the wide kernel's launches must be exactly 20 at width 104 (14
-   coarse, 6 fine), the poses within the cell's limits by the float64
-   reference, K1 on the coarse pass's systems against its plain version and
-   float64.
+   coarse, 6 fine) and the FK kernel's 23 (15 coarse, 8 fine and outputs),
+   the poses within the cell's limits by the float64 reference, K1 on the
+   coarse pass's systems against its plain version and float64.
+
+Every path clears the port's launch counter (``utils.profiling.LAUNCHES``)
+before its run and reads K1's and the FK kernel's launches from it; the FK
+kernel's launches must be MAIN_FK_LAUNCHES on the main path and
+FK_LAUNCHES_BY_PATH on the others.
 
 Cuts, all of depth (the model keeps its full width, nq 44, nv 37, and the
 solver settings, N_ITER_Q 400 and FTOL 1e-4, stay): the default phase fits
@@ -122,8 +139,9 @@ backward (~2,400 small kernels) and the solves of a sequential pass follow
 one another frame by frame; the reference phases run 40-64 frames with
 N_ITERS 2.
 
-The second-to-last line is {"kernels": [...]} (the kernel at n = 37 and its
-layout past n = 96 at the fly's n = 102) and the last line
+The second-to-last line is {"kernels": [...]} (the kernel at n = 37, its
+layout past n = 96 at the fly's n = 102, and the FK kernel at the fly's
+F = 180,000 with every timed shape) and the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 ``python3 chip_smoke.py --dist-worker <spec.json>`` is one rank of phase 11;
@@ -181,6 +199,18 @@ KERNEL_REL_TOL = 1e-4  # f32 Cholesky vs f32 cholesky_ex / f64 solve, max |dx| /
 # (batched) and 6 chained ones in the ik.
 MAIN_LAUNCHES = (112, 34)
 PARTS_LAUNCHES = (112 + 7 * 14, 34 + 6 * 14)
+# FK kernel launches (csrc/fk_jump.cu), read as K1's are. The main path's
+# fit: 1 + 14 a solve over its 8 solves, and 13 passes for the m-phase and
+# the outputs; its ik: 1 + 14 (root), 1 + 14 (coarse), 1 + 6 (fine) and the
+# outputs pass. Every path whose K1 count is exact has an exact FK count
+# (phase 17's fly: 15 in the coarse pass, 8 in the fine pass and the
+# outputs); a run_stac of the main configuration launches what the main
+# path does (phase 14 makes 1 such run, 3 where mujoco imports); the stall
+# path launches at most that, and the segmented path's count is printed.
+MAIN_FK_LAUNCHES = (133, 38)
+FK_LAUNCHES_BY_PATH = {"main": 171, "parts": 366, "driver": 171, "distributed_1": 171,
+                       "distributed_2": 2 * 171 + 2 * 38, "wire16": 171, "chunked": 1710, "profiling": 38,
+                       "demo": 0, "fly": 23}
 # The default phase's depth (see the cuts above) and its bounds: the card's
 # mean residuals within 5% of the CPU's float64 run (PG stops on a
 # tolerance, so float32 and float64 end at other iterates).
@@ -270,6 +300,15 @@ def _device_ms(fn, reps: int) -> float:
     return sum(us for _, us in _device_kernels(fn, reps).values()) * 1e-3
 
 
+def _launches():
+    """The port's count of its hand-written kernels' launches
+    (``utils.profiling.LAUNCHES``: ``"spd_chol"`` for K1, ``"fk_jump"`` for
+    the FK kernel), which every path clears before its run."""
+    from stac_mjx_tpu_torch.utils.profiling import LAUNCHES
+
+    return LAUNCHES
+
+
 def _stream_ms(fn, reps: int) -> float:
     """Time per call of back-to-back calls on the stream (CUDA events): the
     device time, or the host's dispatch time where that is longer."""
@@ -348,10 +387,10 @@ def phase_kernel(spd, device) -> dict:
         A, g, lam = spd_systems(F, n, gen, device)
         rows = torch.arange(0, F, max(1, F // F64_SAMPLE), device=device)
         for lam_ in (None, lam):
-            before = spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)]
+            before = _launches()["spd_chol", spd.dispatch_width(n)]
             err_plain, err_f64, x, _ = _kernel_errors(spd, A, g, lam_, rows)
             held(n, F, lam_, err_plain, err_f64)
-            if spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)] != before + 1 or not bool(torch.isfinite(x).all()):
+            if _launches()["spd_chol", spd.dispatch_width(n)] != before + 1 or not bool(torch.isfinite(x).all()):
                 raise AssertionError(f"kernel at n={n} F={F}: not one launch at width {spd.dispatch_width(n)}, "
                                      f"or x not finite")
             print(f"kernel n={n} F={F} lam={lam_ is not None} (the fly's ik): vs plain {err_plain:.3e}, "
@@ -426,11 +465,12 @@ def phase_main(spd, device, bundle) -> dict:
     warm = Stac(bundle, dict(stac_cfg, n_frames_per_clip=16), model={"N_ITERS": 1}, device=device)
     warm.ik_only(kp[:32], warm.fit_offsets(kp[:16]).offsets)
 
-    spd.KERNEL_LAUNCHES = 0
+    launched = _launches()
+    launched.clear()
     fit, fit_s = _sync_time(lambda: stac.fit_offsets(kp[:N_FIT]))
-    fit_launches = spd.KERNEL_LAUNCHES
+    fit_launches, fit_fk = launched["spd_chol"], launched["fk_jump"]
     ik, ik_s = _sync_time(lambda: stac.ik_only(kp, fit.offsets))
-    ik_launches = spd.KERNEL_LAUNCHES - fit_launches
+    ik_launches, ik_fk = launched["spd_chol"] - fit_launches, launched["fk_jump"] - fit_fk
     kp_host = kp.cpu().numpy()
 
     fit_resid = _resid(fit.marker_sites, fit.kp_data, N_FIT)
@@ -438,14 +478,15 @@ def phase_main(spd, device, bundle) -> dict:
     ik_resid = _resid(ik_markers, kp_host, N_IK)
     off_err = float(np.abs(fit.offsets - true_off).mean())
     print(f"main: fit {N_FIT} frames in {fit_s:.3f} s ({N_FIT / fit_s:.1f} frames/s), "
-          f"mean marker residual {fit_resid * 1e3:.4f} mm, kernel launches {fit_launches}")
+          f"mean marker residual {fit_resid * 1e3:.4f} mm, kernel launches {fit_launches}, FK kernel {fit_fk}")
     print(f"main: ik {N_IK} frames ({N_IK // CLIP} clips of {CLIP}) in {ik_s:.3f} s "
           f"({N_IK / ik_s:.1f} frames/s), mean marker residual {ik_resid * 1e3:.4f} mm, "
-          f"kernel launches {ik_launches}")
+          f"kernel launches {ik_launches}, FK kernel {ik_fk}")
     print(f"main: offset error vs ground truth {off_err * 1e3:.4f} mm (mean abs over {fit.offsets.size} coords)")
     checks = {
         f"fit launched the kernel {MAIN_LAUNCHES[0]} times": fit_launches == MAIN_LAUNCHES[0],
         f"ik launched the kernel {MAIN_LAUNCHES[1]} times": ik_launches == MAIN_LAUNCHES[1],
+        f"fit and ik launched the FK kernel {MAIN_FK_LAUNCHES} times": (fit_fk, ik_fk) == MAIN_FK_LAUNCHES,
         "qpos finite, right shapes": bool(
             np.isfinite(fit.qpos).all() and np.isfinite(ik.qpos).all()
             and fit.qpos.shape == (N_FIT, 44) and ik.qpos.shape == (N_IK, 44)
@@ -461,7 +502,8 @@ def phase_main(spd, device, bundle) -> dict:
         print(f"main: check {what}: {'ok' if ok else 'FAILED'}")
     if not all(checks.values()):
         raise AssertionError("main path checks failed")
-    return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s, "kp": kp, "true_off": true_off,
+    return {"launches": fit_launches + ik_launches, "fk": fit_fk + ik_fk, "fit_s": fit_s, "ik_s": ik_s, "kp": kp,
+            "true_off": true_off,
             "fit_resid": fit_resid, "ik_resid": ik_resid, "off_err": off_err, "fit": fit, "ik": ik, "stac": stac}
 
 
@@ -520,11 +562,12 @@ def phase_parts(spd, device, bundle, kp, true_off) -> dict:
     for what, items in (("fit", P * N_FIT), ("ik", P * N_IK)):
         schedule = "batched" if stac._static_cfg.part_opt_mode == "batched" and items <= cap else "chain"
         print(f"parts: {what} part schedule {schedule} ({P} parts x {items // P} frames = {items} items, cap {cap})")
-    spd.KERNEL_LAUNCHES = 0
+    launched = _launches()
+    launched.clear()
     fit, fit_s = _sync_time(lambda: stac.fit_offsets(kp[:N_FIT]))
-    fit_launches = spd.KERNEL_LAUNCHES
+    fit_launches = launched["spd_chol"]
     ik, ik_s = _sync_time(lambda: stac.ik_only(kp, fit.offsets))
-    ik_launches = spd.KERNEL_LAUNCHES - fit_launches
+    ik_launches, fk = launched["spd_chol"] - fit_launches, launched["fk_jump"]
     fit_resid = _resid(fit.marker_sites, fit.kp_data, N_FIT)
     _, _, ik_markers = stac.compute_full_outputs(ik.qpos)
     ik_resid = _resid(ik_markers, kp.cpu().numpy(), N_IK)
@@ -532,7 +575,7 @@ def phase_parts(spd, device, bundle, kp, true_off) -> dict:
     print(f"parts: fit {N_FIT} frames in {fit_s:.3f} s, mean marker residual {fit_resid * 1e3:.4f} mm, "
           f"kernel launches {fit_launches}")
     print(f"parts: ik {N_IK} frames in {ik_s:.3f} s ({N_IK / ik_s:.1f} frames/s), mean marker residual "
-          f"{ik_resid * 1e3:.4f} mm, kernel launches {ik_launches}")
+          f"{ik_resid * 1e3:.4f} mm, kernel launches {ik_launches}; FK kernel launches in both {fk}")
     print(f"parts: offset error vs ground truth {off_err * 1e3:.4f} mm")
     _check_all("parts", {
         f"fit launched the kernel {PARTS_LAUNCHES[0]} times": fit_launches == PARTS_LAUNCHES[0],
@@ -559,7 +602,7 @@ def phase_parts(spd, device, bundle, kp, true_off) -> dict:
           f"cpu f64 {out['cpu'][0] * 1e3:.4f}/{out['cpu'][1] * 1e3:.4f} mm")
     _check_all("parts", {"small card and cpu f64 residuals within 2%":
                          all(abs(a - b) <= 0.02 * b for a, b in zip(out["card"], out["cpu"]))})
-    return {"launches": fit_launches + ik_launches, "fit_s": fit_s, "ik_s": ik_s}
+    return {"launches": fit_launches + ik_launches, "fk": fk, "fit_s": fit_s, "ik_s": ik_s}
 
 
 @contextlib.contextmanager
@@ -826,8 +869,10 @@ def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
         print(f"driver: recording {pred.shape} written as a DANNCE .mat (mocap units, x{1 / float(cfg.model.MOCAP_SCALE_FACTOR):g}) and "
               f"loaded back by load_data: {kp_data.shape} {kp_data.dtype}, max |change| {mat_err:.3e} m")
 
+        launched = _launches()
+
         def fit_done(_):
-            launches["fit"] = spd.KERNEL_LAUNCHES
+            launches["fit"] = launched["spd_chol"]
 
         with contextlib.ExitStack() as stack:
             if missing:
@@ -835,10 +880,10 @@ def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
             for owner, name, after in ((driver, "fit_phase", fit_done), (Stac, "ik_only", None),
                                        (driver, "infer_qvels", None), (io, "save_data_to_h5", None)):
                 stack.enter_context(_timed(owner, name, times, after))
-            spd.KERNEL_LAUNCHES = 0
+            launched.clear()
             (fit_path, ik_path), run_s = _sync_time(
                 lambda: driver.run_stac(cfg, kp_data, names, base_path=tmp, device=device))
-            launches["ik"] = spd.KERNEL_LAUNCHES - launches["fit"]
+            launches["ik"], launches["fk"] = launched["spd_chol"] - launches["fit"], launched["fk_jump"]
             (_, fit), (ik_cfg, ik) = io.load_stac_data(fit_path), io.load_stac_data(ik_path)
 
     fit_resid = _resid(fit.marker_sites, fit.kp_data, N_FIT)
@@ -857,7 +902,7 @@ def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
     print(f"driver: run_stac in {run_s:.3f} s ({smi}): fit_phase {times['fit_phase']:.3f} s (its write "
           f"included), ik solve {times['ik_only']:.3f} s, qvel {times['infer_qvels']:.4f} s, artifact writes "
           f"{times['save_data_to_h5']:.4f} s ({'in memory' if missing else 'h5'}); kernel launches "
-          f"{launches['fit']} (fit) + {launches['ik']} (ik)")
+          f"{launches['fit']} (fit) + {launches['ik']} (ik), FK kernel {launches['fk']}")
     print(f"driver: fit residual {fit_resid * 1e3:.4f} mm, offset error {off_err * 1e3:.4f} mm (main phase "
           f"{main_run['fit_resid'] * 1e3:.4f}, {main_run['off_err'] * 1e3:.4f} mm); ik residual from the "
           f"artifact's markers {ik_resid * 1e3:.4f} mm, {ik_resid / main_run['ik_resid']:.4f}x the main phase's "
@@ -883,7 +928,8 @@ def phase_driver(spd, device, bundle, main_run, smi: str) -> dict:
         f"qvel gyro within {DRIVER_GYRO_ABS} rad/s of cpu f64": bool(gyro.max() <= DRIVER_GYRO_ABS),
         f"qvel gyro within {DRIVER_GYRO_REST_ABS} rad/s where w < 1": rest <= DRIVER_GYRO_REST_ABS,
     })
-    return {"launches": launches["fit"] + launches["ik"], "conf": cfg.to_dict(), "fit": fit, "ik": ik}
+    return {"launches": launches["fit"] + launches["ik"], "fk": launches["fk"], "conf": cfg.to_dict(), "fit": fit,
+            "ik": ik}
 
 
 
@@ -972,10 +1018,11 @@ def dist_worker(spec_path: str) -> int:
     mesh = pod_mesh(device)
     cfg = config_from_dict(spec["config"])
     results, times, launches = {}, {}, {}
+    launched = _launches()
 
     def keep(what):
         def after(out):
-            results[what], launches[what] = out, spd.KERNEL_LAUNCHES
+            results[what], launches[what] = out, launched["spd_chol"]
         return after
 
     missing = [m for m in ("h5py", "yaml") if not _importable(m)]
@@ -987,28 +1034,29 @@ def dist_worker(spec_path: str) -> int:
         stack.enter_context(_timed(Stac, "ik_only_global", times, keep("ik")))
         captured = stack.enter_context(_capturing(lambda A, lam: A.shape[0] == capture_f and lam is not None))
         dist.barrier()
-        spd.KERNEL_LAUNCHES = 0
+        launched.clear()
         _, run_s = _sync_time(lambda: run_stac_distributed(cfg, base_path=spec["dir"], mesh=mesh))
     fit, ik = results["fit"], results["ik"]
     out = {"fit_qpos": fit.qpos, "fit_offsets": fit.offsets, "fit_markers": fit.marker_sites,
            "fit_kp": fit.kp_data, "ik_qpos": ik.qpos, "ik_markers": ik.marker_sites, "ik_kp": ik.kp_data,
-           "launches": np.array([launches["fit"], launches["ik"] - launches["fit"]]),
+           "launches": np.array([launches["fit"], launches["ik"] - launches["fit"]]), "fk": np.array(launched["fk_jump"]),
            "walls": np.array([run_s, times["fit_offsets_sharded"], times["ik_only_global"]])}
     if spec.get("ik_main_offsets"):
         kp_data, names = io.load_data(cfg, base_path=spec["dir"])
         batched = batch_kp_data(np.asarray(kp_data, np.float32), CLIP)
         lo, hi = local_clip_range(batched.shape[0], mesh)
         stac = driver.make_stac(cfg, names, device=device)
-        spd.KERNEL_LAUNCHES = 0
+        launched.clear()
         ik_main = stac.ik_only_global(make_global_clips(batched[lo:hi], mesh), np.load(spec["ik_main_offsets"]), mesh)
-        out["ik_main_qpos"], out["ik_main_launches"] = ik_main.qpos, np.array(spd.KERNEL_LAUNCHES)
+        out["ik_main_qpos"], out["ik_main_launches"] = ik_main.qpos, np.array(launched["spd_chol"])
+        out["ik_main_fk"] = np.array(launched["fk_jump"])
     if captured:
         A, g, lam = captured[0]
         out["capture"] = np.array([A.shape[0], *_kernel_vs_plain(spd, A, g, lam)])
     np.savez(spec["out"], **out)
     print(f"dist-worker: {spec['backend']} rank {mesh.rank} of {mesh.size} on {device}: run_stac_distributed "
           f"{run_s:.3f} s (fit {times['fit_offsets_sharded']:.3f} s, ik {times['ik_only_global']:.3f} s), "
-          f"K1 launches {out['launches'].tolist()}", flush=True)
+          f"K1 launches {out['launches'].tolist()}, FK kernel {int(out['fk'])}", flush=True)
     dist.destroy_process_group()
     return 0
 
@@ -1088,7 +1136,7 @@ def phase_distributed(spd, device, bundle, main_run, smi: str) -> dict:
     F_cap, err_plain, err_f64, finite = ra["capture"]
     print(f"distributed: K1 on a rank's fit systems, F = {int(F_cap)}: vs plain {err_plain:.3e}, vs f64 "
           f"{err_f64:.3e} (bound {KERNEL_REL_TOL}); phase wall {time.perf_counter() - t_phase:.2f} s")
-    same = all(np.array_equal(ra[k], rb[k]) for k in ra if k not in ("walls", "capture", "launches"))
+    same = all(np.array_equal(ra[k], rb[k]) for k in ra if k not in ("walls", "capture", "launches", "fk"))
     _check_all("distributed", {
         f"world 1 launched the kernel {MAIN_LAUNCHES[0]} + {MAIN_LAUNCHES[1]} times":
             tuple(r1["launches"]) == MAIN_LAUNCHES,
@@ -1105,8 +1153,11 @@ def phase_distributed(spd, device, bundle, main_run, smi: str) -> dict:
         f"K1 at F = {int(F_cap)} within bound of plain and f64, finite":
             err_plain < KERNEL_REL_TOL and err_f64 < KERNEL_REL_TOL and bool(finite),
     })
+    print(f"distributed: FK kernel launches world 1 {int(r1['fk'])}, world 2 per rank {int(ra['fk'])} and "
+          f"{int(rb['fk'])}, the ik at the main offsets {int(ra['ik_main_fk'])} per rank")
     return {"launches": int(r1["launches"].sum()), "launches_2": int(ra["launches"].sum() + rb["launches"].sum()
-                                                                         + ra["ik_main_launches"] + rb["ik_main_launches"])}
+                                                                         + ra["ik_main_launches"] + rb["ik_main_launches"]),
+            "fk": int(r1["fk"]), "fk_2": int(ra["fk"] + rb["fk"] + ra["ik_main_fk"] + rb["ik_main_fk"])}
 
 
 # Phase 12: the options, at the main path's sizes. OPT_REL: stall freezing
@@ -1127,20 +1178,22 @@ def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
     kp, fit0, ik0 = main_run["kp"], main_run["fit"], main_run["ik"]
     kp_host = kp.cpu().numpy()
     cfg = dict(THROUGHPUT, n_fit_frames=N_FIT, n_frames_per_clip=CLIP)
-    launches, checks = {}, {}
+    launches, fk, checks = {}, {}, {}
+    launched = _launches()
 
-    def fit_ik(stac):
-        spd.KERNEL_LAUNCHES = 0
+    def fit_ik(stac, what):
+        launched.clear()
         fit, fit_s = _sync_time(lambda: stac.fit_offsets(kp[:N_FIT]))
-        n_fit = spd.KERNEL_LAUNCHES
+        n_fit = launched["spd_chol"]
         ik, ik_s = _sync_time(lambda: stac.ik_only(kp, fit.offsets))
+        n_ik, fk[what] = launched["spd_chol"] - n_fit, launched["fk_jump"]
         _, _, fit_markers = stac.compute_full_outputs(fit.qpos)  # at fit.offsets
         _, _, ik_markers = stac.compute_full_outputs(ik.qpos)
-        return ((n_fit, spd.KERNEL_LAUNCHES - n_fit), (fit_s, ik_s),
+        return ((n_fit, n_ik), (fit_s, ik_s),
                 (_resid(fit_markers, fit.kp_data, N_FIT), _resid(ik_markers, kp_host, N_IK)), fit)
 
     main_q = (main_run["fit_resid"], main_run["ik_resid"])
-    (lf, li), (fs, is_), q, _ = fit_ik(Stac(bundle, dict(cfg, gn_stall_iters=3), device=device))
+    (lf, li), (fs, is_), q, _ = fit_ik(Stac(bundle, dict(cfg, gn_stall_iters=3), device=device), "stall")
     launches["stall"] = lf + li
     print(f"options: gn_stall_iters=3 ({smi}): fit {fs:.3f} s (main {main_run['fit_s']:.3f}), ik {is_:.3f} s (main "
           f"{main_run['ik_s']:.3f}); K1 launches {lf} + {li} (fixed count {MAIN_LAUNCHES[0]} + {MAIN_LAUNCHES[1]}); "
@@ -1148,7 +1201,7 @@ def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
     checks[f"stall: launches at most {MAIN_LAUNCHES}"] = lf <= MAIN_LAUNCHES[0] and li <= MAIN_LAUNCHES[1]
     checks[f"stall: residuals within {OPT_REL:.0%} of main"] = all(abs(a - b) <= OPT_REL * b for a, b in zip(q, main_q))
 
-    (lf, li), (fs, is_), q, wfit = fit_ik(Stac(bundle, dict(cfg, wire_dtype="float16"), device=device))
+    (lf, li), (fs, is_), q, wfit = fit_ik(Stac(bundle, dict(cfg, wire_dtype="float16"), device=device), "wire16")
     launches["wire16"] = lf + li
     print(f"options: wire_dtype=float16: fit {fs:.3f} s, ik {is_:.3f} s; K1 launches {lf} + {li}; residual of the "
           f"markers recomputed from the upcast qpos, fit/ik {_fmt_mm(q[0])}/{_fmt_mm(q[1])} mm (main "
@@ -1159,15 +1212,16 @@ def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
 
     stacs = {"one": Stac(bundle, cfg, device=device), "chunked": Stac(bundle, dict(cfg, ik_chunk_clips=CHUNK),
                                                                        device=device)}
-    runs = {"one": [], "chunked": []}  # (wall, K1 launches, qpos) per run, in turns
+    runs = {"one": [], "chunked": []}  # (wall, K1 launches, qpos, FK launches) per run, in turns
     with _capturing(lambda A, lam: A.shape[0] == CHUNK * CLIP and lam is not None) as captured:
         for what in ("one", "chunked", "chunked", "one"):
-            spd.KERNEL_LAUNCHES = 0
+            launched.clear()
             ik, wall = _sync_time(lambda st=stacs[what]: st.ik_only(kp, fit0.offsets))
-            runs[what].append((wall, spd.KERNEL_LAUNCHES, ik.qpos))
+            runs[what].append((wall, launched["spd_chol"], ik.qpos, launched["fk_jump"]))
     A, g, lam = captured[0]
     c_plain, c_f64, c_fin = _kernel_vs_plain(spd, A, g, lam)
     launches["chunked"] = sum(r[1] for rs in runs.values() for r in rs)
+    fk["chunked"] = sum(r[3] for rs in runs.values() for r in rs)
     agree = {what: _ik_agreement(main_run, rs[0][2]) for what, rs in runs.items()}
     repeat = {what: bool(np.array_equal(rs[0][2], rs[1][2])) for what, rs in runs.items()}
     print(f"options: ik in chunks of {CHUNK} clips vs one batch, walls in turns: one "
@@ -1188,10 +1242,11 @@ def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
     for chunk in CHUNKS:
         n_clips = SMALL_CHUNK_CLIPS if chunk < 4 else N_IK // CLIP
         st = Stac(bundle, dict(cfg, ik_chunk_clips=chunk), device=device)
-        spd.KERNEL_LAUNCHES = 0
+        launched.clear()
         ik, wall = _sync_time(lambda st=st: st.ik_only(kp[: n_clips * CLIP], fit0.offsets))
-        n = spd.KERNEL_LAUNCHES
+        n = launched["spd_chol"]
         launches["chunked"] += n
+        fk["chunked"] += launched["fk_jump"]
         dq = float(np.abs(ik.qpos - one[: n_clips * CLIP]).max())
         print(f"options: ik of {n_clips} clips in chunks of {chunk} ({n_clips // chunk} chunks) vs one batch of 40: "
               f"max |qpos delta| {dq:.3e}, K1 launches {n} ({MAIN_LAUNCHES[1]} per chunk), wall {wall:.3f} s")
@@ -1205,9 +1260,10 @@ def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
     for seg in (-1, SEG):
         st = Stac(bundle, dict(seq, seq_segment_frames=seg), device=device)
         with _capturing(lambda A, lam: A.shape[0] == SEG_CLIPS and lam is None) as captured:
-            spd.KERNEL_LAUNCHES = 0
+            launched.clear()
             out[seg], wall = _sync_time(lambda st=st: st.ik_only(kp_s, fit0.offsets))
-            out[f"{seg}_launches"], out[f"{seg}_wall"] = spd.KERNEL_LAUNCHES, wall
+            out[f"{seg}_launches"], out[f"{seg}_wall"] = launched["spd_chol"], wall
+            fk["segmented"] = fk.get("segmented", 0) + launched["fk_jump"]
     A, g, lam = captured[0]
     s_plain, s_f64, s_fin = _kernel_vs_plain(spd, A, g, lam)
     d = float(np.abs(out[SEG].qpos - out[-1].qpos).max())
@@ -1218,8 +1274,10 @@ def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
           f"{s_plain:.3e}, vs f64 {s_f64:.3e}; phase wall {time.perf_counter() - t_phase:.2f} s")
     checks[f"segmented: qpos within {DIST_QPOS_ABS} of one call"] = d <= DIST_QPOS_ABS
     checks[f"segmented: K1 at F = {SEG_CLIPS} within bound"] = s_plain < KERNEL_REL_TOL and s_f64 < KERNEL_REL_TOL and s_fin
+    print(f"options: FK kernel launches {fk}")
+    checks[f"stall: FK kernel launches at most {sum(MAIN_FK_LAUNCHES)}"] = fk["stall"] <= sum(MAIN_FK_LAUNCHES)
     _check_all("options", checks)
-    return {"launches": launches}
+    return {"launches": launches, "fk": fk}
 
 
 def phase_profiling(spd, main_run) -> dict:
@@ -1230,22 +1288,25 @@ def phase_profiling(spd, main_run) -> dict:
     stac, kp, fit = main_run["stac"], main_run["kp"], main_run["fit"]
     profiling.reset()
     with tempfile.TemporaryDirectory() as logdir:
-        spd.KERNEL_LAUNCHES = 0
+        profiling.LAUNCHES.clear()
         with profiling.device_trace(logdir):
             stac.ik_only(kp, fit.offsets)
-        n = spd.KERNEL_LAUNCHES
+        n, n_fk = profiling.LAUNCHES["spd_chol"], profiling.LAUNCHES["fk_jump"]
         table = profiling.op_table(logdir, top=10**6)
     k1 = [o for o in table["ops"] if "spd_chol" in o["op"]]
+    k2 = [o for o in table["ops"] if "fk_jump" in o["op"]]
     rep = profiling.report()
     top = ", ".join(f"{o['op'][:40]} {o['us']:.0f} us x{o['count']}" for o in table["ops"][:4])
     print(f"profiling: traced ik: {len(table['ops'])} kernels, {table['total_op_us'] / 1e3:.3f} ms of kernel time, "
           f"copies {table['copy_formatting_pct']}%; K1 {k1[0]['op'] if k1 else 'absent'}: "
-          f"{k1[0]['count'] if k1 else 0} launches, {k1[0]['us'] if k1 else 0:.1f} us; top: {top}; report {rep}")
+          f"{k1[0]['count'] if k1 else 0} launches, {k1[0]['us'] if k1 else 0:.1f} us; FK kernel "
+          f"{k2[0]['count'] if k2 else 0} launches (counted {n_fk}); top: {top}; report {rep}")
     _check_all("profiling", {
         f"op_table lists K1 with {MAIN_LAUNCHES[1]} launches": len(k1) == 1 and k1[0]["count"] == MAIN_LAUNCHES[1] == n,
+        "op_table lists the FK kernel with the counted launches": len(k2) == 1 and k2[0]["count"] == n_fk,
         "report() holds ik_only": rep.get("ik_only", {}).get("count") == 1,
     })
-    return {"launches": n}
+    return {"launches": n, "fk": n_fk}
 
 
 # Phase 14: the model. run_stac on the main path's configuration with the
@@ -1303,6 +1364,7 @@ def _run_stac_in_memory(spd, device, conf: dict, kp_host: np.ndarray) -> dict:
 
     cfg = config_from_dict(copy.deepcopy(conf))
     times, launches, made = {}, {}, []
+    launched = _launches()
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         _write_mat(cfg, kp_host, tmp / "recording.mat")
@@ -1311,13 +1373,13 @@ def _run_stac_in_memory(spd, device, conf: dict, kp_host: np.ndarray) -> dict:
             stack.enter_context(_MemoryArtifacts(io).installed())
             stack.enter_context(_timed(driver, "make_stac", times, made.append))
             stack.enter_context(_timed(driver, "fit_phase", times,
-                                       lambda _: launches.__setitem__("fit", spd.KERNEL_LAUNCHES)))
-            spd.KERNEL_LAUNCHES = 0
+                                       lambda _: launches.__setitem__("fit", launched["spd_chol"])))
+            launched.clear()
             (fit_path, ik_path), run_s = _sync_time(lambda: driver.run_stac(cfg, kp_data, names, base_path=tmp,
                                                                              device=device))
-            launches["ik"] = spd.KERNEL_LAUNCHES - launches["fit"]
+            launches["ik"], launches["fk"] = launched["spd_chol"] - launches["fit"], launched["fk_jump"]
             (_, fit), (_, ik) = io.load_stac_data(fit_path), io.load_stac_data(ik_path)
-    return {"fit": fit, "ik": ik, "launches": (launches["fit"], launches["ik"]), "run_s": run_s,
+    return {"fit": fit, "ik": ik, "launches": (launches["fit"], launches["ik"]), "fk": launches["fk"], "run_s": run_s,
             "model_s": times["make_stac"], "stac": made[0]}
 
 
@@ -1364,7 +1426,7 @@ def phase_model(spd, device, bundle, main_run, driver_run, smi: str) -> dict:
     recorded = json.loads(str(bundle["model_config"]))
     stac_conf = dict(MODEL_RUN, fit_offsets_path="fit.h5", ik_only_path="ik.h5", data_path="recording.mat",
                      n_fit_frames=N_FIT, n_frames_per_clip=CLIP, skip_fit_offsets=False, skip_ik_only=False)
-    checks, launches = {}, 0
+    checks, launches, fk, runs = {}, 0, 0, 1
 
     # (a) The set-up-only change, and the set-up of the recorded config.
     stored = model_setup(recorded, bundle)
@@ -1372,6 +1434,7 @@ def phase_model(spd, device, bundle, main_run, driver_run, smi: str) -> dict:
     changed = _setup_only_change(recorded)
     run = _run_stac_in_memory(spd, device, {"model": changed, "stac": stac_conf}, kp_host)
     launches += sum(run["launches"])
+    fk += run["fk"]
     st, q = run["stac"], _quality(run, true_off)
     kp_names = list(changed["KEYPOINT_MODEL_PAIRS"])
     print(f"model (a): {smi}: ROOT_OPTIMIZATION_KEYPOINT TorsoF (index {st._root_kp_idx}), "
@@ -1416,6 +1479,8 @@ def phase_model(spd, device, bundle, main_run, driver_run, smi: str) -> dict:
                 for k, v in recorded["KEYPOINT_INITIAL_OFFSETS"].items()}
             unserved = _run_stac_in_memory(spd, device, {"model": moved, "stac": stac_conf}, kp_host)
         launches += sum(again["launches"]) + sum(unserved["launches"])
+        fk += again["fk"] + unserved["fk"]
+        runs += 2
         fit0, ik0 = driver_run["fit"], driver_run["ik"]
         d = max(float(np.abs(np.asarray(a) - np.asarray(b)).max()) for a, b in (
             (again["fit"].qpos, fit0.qpos), (again["fit"].offsets, fit0.offsets), (again["ik"].qpos, ik0.qpos),
@@ -1429,9 +1494,9 @@ def phase_model(spd, device, bundle, main_run, driver_run, smi: str) -> dict:
         print(f"model (b): initial offsets moved by +-{MOVED_M * 1e3:g} mm (seed {MOVED_SEED}), no bundle serves it, "
               f"compiled on this host: " + _quality_line(unserved, q))
         checks.update(_quality_checks("(b) moved offsets", unserved, q))
-    print(f"model: phase wall {time.perf_counter() - t_phase:.2f} s")
+    print(f"model: phase wall {time.perf_counter() - t_phase:.2f} s; FK kernel launches {fk}")
     _check_all("model", checks)
-    return {"launches": launches}
+    return {"launches": launches, "fk": fk, "runs": runs}
 
 
 # Phase 15: the rest of the JAX package's public surface on the card.
@@ -1550,9 +1615,10 @@ def phase_surface(spd, device, main_run, driver_run, smi: str) -> dict:
         return A.shape[0] == demo.N_FRAMES and lam is not None
 
     with _linesearch_steps() as steps, _capturing(pose_pass) as captured:
-        spd.KERNEL_LAUNCHES = 0
+        launched = _launches()
+        launched.clear()
         out, demo_s = _sync_time(lambda: demo.run(device))
-        demo_launches = spd.KERNEL_LAUNCHES
+        demo_launches, demo_fk = launched["spd_chol"], launched["fk_jump"]
     demo.report(out)
     A, g, lam = captured[0]
     d_plain, d_f64, d_fin = _kernel_vs_plain(spd, A, g, lam)
@@ -1593,10 +1659,10 @@ def phase_surface(spd, device, main_run, driver_run, smi: str) -> dict:
     checks["write_assets byte-equal to the checked-in files"] = all(same)
     print(f"surface: phase wall {time.perf_counter() - t_phase:.2f} s")
     _check_all("surface", checks)
-    return {"launches": demo_launches}
+    return {"launches": demo_launches, "fk": demo_fk}
 
 
-# Phase 16: the tethered fly (nv 102) at the benchmark cell's size, one
+# Phase 17: the tethered fly (nv 102) at the benchmark cell's size, one
 # session: every pass runs eager (F > the LM graphs' bound), 14 coarse and 6
 # fine LM iterations, each one launch of the wide kernel at width 104.
 FLY_CELL = "fly-lm.ik-session"
@@ -1620,11 +1686,11 @@ def phase_fly(spd, device, smi: str) -> dict:
     coarse_f = int(cell.traffic["clips"]) * -(-per_clip // stride)  # every stride-th frame of each clip
     with _capturing(lambda A, lam: A.shape[0] == coarse_f and lam is not None) as captured:
         _, warm_s = _sync_time(lambda: job.call(0))  # first call: the cell's shapes warmed
-    spd.KERNEL_LAUNCHES = 0
-    spd.LAUNCHES_BY_WIDTH.clear()
+    launched = _launches()
+    launched.clear()
     torch.cuda.reset_peak_memory_stats(device)
     record, ik_s = _sync_time(lambda: job.call(0))
-    launches, by_width = spd.KERNEL_LAUNCHES, dict(spd.LAUNCHES_BY_WIDTH)
+    launches, by_width, fk_launches = launched["spd_chol"], spd.launches_by_width(launched), launched["fk_jump"]
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     A, g, lam = captured[0]
     c_plain, c_f64, c_fin = _kernel_vs_plain(spd, A, g, lam)
@@ -1637,8 +1703,10 @@ def phase_fly(spd, device, smi: str) -> dict:
           f"in {ik_s:.3f} s ({frames / ik_s:.1f} frames/s; first call {warm_s:.3f} s), launches {launches} by width "
           f"{by_width}, peak allocated in the call {peak_gb:.2f} GB; residual {res['e2e']['residual_mm']!r} true mm; "
           + ", ".join(f"{k} {c['value']!r} (limit {c['limit']!r})" for k, c in checks.items()))
-    print(f"fly: K1 on the coarse pass's systems (F = {coarse_f}, n = 102) vs plain {c_plain:.3e}, vs f64 {c_f64:.3e}")
+    print(f"fly: K1 on the coarse pass's systems (F = {coarse_f}, n = 102) vs plain {c_plain:.3e}, vs f64 {c_f64:.3e}; "
+          f"the FK kernel launched {fk_launches} times in the call")
     _check_all("fly", {
+        f"the call launched the FK kernel {FK_LAUNCHES_BY_PATH['fly']} times": fk_launches == FK_LAUNCHES_BY_PATH["fly"],
         f"ik launched the kernel {sum(FLY_LAUNCHES.values())} times, by width {FLY_LAUNCHES}":
             launches == sum(FLY_LAUNCHES.values()) and by_width == FLY_LAUNCHES,
         "qpos finite": bool(np.isfinite(record[1]).all()),
@@ -1647,7 +1715,81 @@ def phase_fly(spd, device, smi: str) -> dict:
             c_plain < KERNEL_REL_TOL and c_f64 < KERNEL_REL_TOL and c_fin,
     })
     torch.cuda.empty_cache()
-    return {"launches": launches, "by_width": by_width}
+    return {"launches": launches, "by_width": by_width, "fk": fk_launches}
+
+
+# The FK phase: the cells' shapes (model, frames), the main path's ik
+# shapes (coarse pass, 40 clips x 32 frames; fine pass) and the bound of
+# the kernel against its plain body (tests/test_torch_fk_kernel.py's F32_REL).
+FK_SHAPES = (("fly_tethered", 22_800), ("fly_tethered", 180_000), ("firstparty", 23_040), ("firstparty", 180_000),
+             ("firstparty", 1_280), ("firstparty", N_IK))
+FK_REL = 4e-6
+
+
+def _fk_bound(F: int, dims) -> tuple[float, str]:
+    """Least time (ms) of one float32 FK pass of F frames, and what bounds
+    it: qpos read once and xpos, xquat, site_xpos, xanchor, xaxis written
+    once, against ``peaks.fk_flops`` a frame."""
+    from portbench.harness import peaks
+
+    nbytes = F * 4 * (dims.nq + 7 * dims.nbody + 3 * dims.nsite + 6 * dims.njnt)
+    flops = F * peaks.fk_flops(dims.nbody - 1, dims.njnt, dims.nsite)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_fk(device) -> dict:
+    """The FK kernel against its plain body at FK_SHAPES, and both timed in
+    turns (kernel, plain, plain, kernel), on the stream and by device time
+    (torch.profiler, as K1 is timed), beside the kernel's bound."""
+    from stac_mjx_tpu_torch import bridge
+    from stac_mjx_tpu_torch.models import kinematics
+    from stac_mjx_tpu_torch.ops import _build
+
+    kinematics._fk_kernel(torch.float32)
+    info = _build.BUILD_INFO["fk_jump"]
+    print(f"build: fk_jump.cu (nvcc {info['seconds']:.2f} s)")
+    for ln in info["log"].splitlines():
+        if "Compiling entry function" in ln or "Used" in ln or "spill" in ln:
+            print(f"build: ptxas {ln.split(':', 1)[-1].strip()}")
+    free, total = torch.cuda.mem_get_info(device)
+    print(f"fk: device memory free {free / 1e9:.2f} of {total / 1e9:.2f} GB, reserved by torch "
+          f"{torch.cuda.memory_reserved(device) / 1e9:.2f} GB")
+    out = {}
+    for name, F in FK_SHAPES:
+        b = bridge.load_bundle(bridge.bundle_path(name))
+        fm = bridge.fit_model_from_arrays(b, device, torch.float32)
+        fk = kinematics.make_fk_jump(fm.topo, device)
+        rng = np.random.default_rng(F)
+        q = torch.as_tensor(np.tile(b["qpos0"], (F, 1)) + rng.normal(0, 0.4, (F, len(b["qpos0"]))),
+                            dtype=torch.float32, device=device)
+        got, want = fk.kernel(fm.params, q), fk.plain(fm.params, q)
+        torch.cuda.synchronize()
+        scale = float(want.xpos.abs().max())
+        err = max(float((getattr(got, f) - getattr(want, f)).abs().max()) / (scale if f in ("xpos", "site_xpos", "xanchor") else 1.0)
+                  for f in ("xpos", "xquat", "site_xpos", "xanchor", "xaxis"))
+        del got, want
+        fns = {"kernel": lambda: fk.kernel(fm.params, q), "plain": lambda: fk.plain(fm.params, q)}
+        t = {which: {"stream": [], "device": []} for which in fns}
+        for how, timer in (("stream", _stream_ms), ("device", _device_ms)):
+            for which in ("kernel", "plain", "plain", "kernel"):
+                fns[which]()
+                torch.cuda.synchronize()
+                t[which][how].append(timer(fns[which], 20))
+        t = {which: {k: sum(v) / len(v) for k, v in d.items()} for which, d in t.items()}
+        if not t["kernel"]["device"] > 0 < t["plain"]["device"]:
+            raise AssertionError(f"fk {name} F={F}: torch.profiler recorded no device activity")
+        bound_ms, bound_by = _fk_bound(F, kinematics.fk_table(fm.topo).dims)
+        out[(name, F)] = dict(t, err=err, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"fk {name} F={F}: kernel vs plain {err:.3e} of the length scale {scale:.4f} (bound {FK_REL}); "
+              f"ms per call on the stream (device ms): kernel {t['kernel']['stream']:.4f} ({t['kernel']['device']:.4f}), "
+              f"plain {t['plain']['stream']:.4f} ({t['plain']['device']:.4f}); bound {bound_ms:.4f} ms ({bound_by}), "
+              f"kernel device time at {100 * bound_ms / t['kernel']['device']:.1f}% of it, "
+              f"{t['plain']['device'] / t['kernel']['device']:.1f}x faster than plain")
+        del q
+        torch.cuda.empty_cache()
+    _check_all("fk", {f"kernel within {FK_REL} of plain at {FK_SHAPES}": all(v["err"] < FK_REL for v in out.values())})
+    return out
 
 
 def main() -> int:
@@ -1685,11 +1827,12 @@ def main() -> int:
     parts = phase_parts(spd, device, bundle, main_run["kp"], main_run["true_off"])
     phase_part_systems(spd, device, bundle, main_run["kp"])
     times = phase_kernel_times(spd, device)
+    fk_times = phase_fk(device)  # phase 16, timed while torch.profiler still records (see its docstring)
     phase_default(device, bundle, main_run["kp"])
     drv = phase_driver(spd, device, bundle, main_run, smi)
     t_new = time.perf_counter()
     dist_run = phase_distributed(spd, device, bundle, main_run, smi)
-    opts = phase_options(spd, device, bundle, main_run, smi)["launches"]
+    options = phase_options(spd, device, bundle, main_run, smi)
     prof = phase_profiling(spd, main_run)
     model = phase_model(spd, device, bundle, main_run, drv, smi)
     print(f"phases 11-14 (distributed, options, profiling, model) in {time.perf_counter() - t_new:.1f} s")
@@ -1699,12 +1842,20 @@ def main() -> int:
     # launches: every path's run (the rank processes' counts included). ms, plain_ms and
     # library_ms: time per call on the stream, as since the first version of
     # this line; the *device_ms keys: torch.profiler device time.
+    runs = {"main": main_run, "parts": parts, "driver": drv, "profiling": prof, "model": model, "demo": surface,
+            "fly": fly}
+    fk_by_path = {"distributed_1": dist_run["fk"], "distributed_2": dist_run["fk_2"], **options["fk"],
+                  **{path: run["fk"] for path, run in runs.items()}}
+    expected = dict(FK_LAUNCHES_BY_PATH, model=sum(MAIN_FK_LAUNCHES) * model["runs"])
+    print(f"FK kernel launches by path: {fk_by_path}")
+    _check_all("launches", {f"the FK kernel's launches by path are {expected}":
+                            {k: fk_by_path[k] for k in expected} == expected})
     by_path = {"main": main_run["launches"], "parts": parts["launches"], "driver": drv["launches"],
                "distributed_1": dist_run["launches"], "distributed_2": dist_run["launches_2"],
-               "stall": opts["stall"], "wire16": opts["wire16"], "chunked": opts["chunked"],
-               "segmented": opts["segmented"], "profiling": prof["launches"], "model": model["launches"],
+               **options["launches"], "profiling": prof["launches"], "model": model["launches"],
                "demo": surface["launches"]}
     t, w = times[(37, 10_000)], times[FLY_SHAPES[-1]]
+    k = fk_times[FK_SHAPES[1]]
     print(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s, the build included")
     print(json.dumps({"kernels": [{
         "name": "spd_chol_solve_f32",
@@ -1740,6 +1891,23 @@ def main() -> int:
         "device_ms": w["kernel"]["device"],
         "plain_device_ms": w["plain"]["device"],
         "library_device_ms": w["library"]["device"],
+    }, {  # the FK kernel at the fly's fine pass; every timed shape below
+        "name": "fk_jump_kernel",
+        "route": "cuda",
+        "source": "stac_mjx_tpu_torch/csrc/fk_jump.cu",
+        "replaces": None,
+        "launches": sum(fk_by_path.values()),
+        "launches_by_path": fk_by_path,
+        "F": FK_SHAPES[1][1],
+        "max_rel_err": max(v["err"] for v in fk_times.values()),
+        "ms": k["kernel"]["stream"],
+        "plain_ms": k["plain"]["stream"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "device_ms": k["kernel"]["device"],
+        "plain_device_ms": k["plain"]["device"],
+        "shapes": {f"{name} F={F}": {"device_ms": v["kernel"]["device"], "plain_device_ms": v["plain"]["device"],
+                                     "bound_ms": v["bound_ms"]} for (name, F), v in fk_times.items()},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
     return 0

@@ -49,6 +49,7 @@ def main() -> int:
     from stac_mjx_tpu_torch.ops import spd
     from stac_mjx_tpu_torch.ops.gn_ik import GNIK
     from stac_mjx_tpu_torch.stac import Stac
+    from stac_mjx_tpu_torch.utils.profiling import LAUNCHES
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0])
@@ -68,16 +69,16 @@ def main() -> int:
     try:
         for name in order:
             GNIK._row_sum = staticmethod(LAYOUTS[name])
-            spd.KERNEL_LAUNCHES = 0
+            LAUNCHES.clear()
             fit, fit_s = cs._sync_time(lambda: stac.fit_offsets(kp[: cs.N_FIT]))
-            n_fit = spd.KERNEL_LAUNCHES
+            n_fit = LAUNCHES["spd_chol"]
             ik, ik_s = cs._sync_time(lambda: stac.ik_only(kp, fit.offsets))
             _, _, ik_markers = stac.compute_full_outputs(ik.qpos)
             q = (cs._resid(fit.marker_sites, fit.kp_data, cs.N_FIT), cs._resid(ik_markers, kp_host, cs.N_IK),
                  float(np.abs(fit.offsets - true_off).mean()))
-            runs[name].append((fit_s, ik_s, q, (n_fit, spd.KERNEL_LAUNCHES - n_fit), fit.offsets, ik.qpos))
+            runs[name].append((fit_s, ik_s, q, (n_fit, LAUNCHES["spd_chol"] - n_fit), fit.offsets, ik.qpos))
             print(f"{name}: fit {fit_s:.4f} s, ik {ik_s:.4f} s; fit/ik residual {q[0] * 1e3:.4f}/{q[1] * 1e3:.4f} mm, "
-                  f"offset error {q[2] * 1e3:.4f} mm; K1 launches {n_fit} + {spd.KERNEL_LAUNCHES - n_fit}")
+                  f"offset error {q[2] * 1e3:.4f} mm; K1 launches {n_fit} + {LAUNCHES["spd_chol"] - n_fit}")
 
         for name in RUN:
             GNIK._row_sum = staticmethod(LAYOUTS[name])

@@ -1,7 +1,8 @@
 """Forward kinematics over batched tensors (port of ``stac_mjx_tpu/models/kinematics.py``).
 
 Both schedules are here: the level scan (``make_fk``, the ``fk_impl=scan``
-default) and pointer doubling (``make_fk_jump``); also the FK of a subset of
+default) and pointer doubling (``make_fk_jump``, which on the card launches
+one hand-written kernel, ``csrc/fk_jump.cu``); also the FK of a subset of
 sites (``make_site_fk``) and the subtree centres of mass (``subtree_com``,
 mjx's ``com_pos``). Numerical semantics match
 MuJoCo's ``mj_kinematics``: free joints set the frame from qpos
@@ -14,13 +15,16 @@ projected-gradient solvers do).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from stac_mjx_tpu_torch.ops import _build
 from stac_mjx_tpu_torch.ops import quat as qm
-from stac_mjx_tpu_torch.utils.profiling import annotate
+from stac_mjx_tpu_torch.utils.profiling import LAUNCHES, annotate
 
 # Joint type codes (mujoco.mjtJoint order: FREE=0, BALL=1, SLIDE=2, HINGE=3).
 JNT_FREE = 0
@@ -320,6 +324,14 @@ def make_fk_jump(topo: KinTopology, device: torch.device | str):
 
     qpos reads are index gathers (the JAX version's one-hot matvecs were a
     TPU layout trick). All index tables live on ``device``.
+
+    That is the plain body, which runs on a CPU tensor. On a CUDA tensor
+    every pass launches the kernel (``fk_jump_cuda``: the whole pass in one
+    launch, each body's quaternion normalised as it is composed, equal to
+    the plain body to rounding) or raises; where autograd records, the
+    backward recomputes the pass through the plain body (``_KernelPass``).
+    The returned function carries both bodies as ``.plain`` and ``.kernel``
+    (each in its ``fk`` span) for the tests and ``chip_smoke.py``.
     """
     nq = topo.nq
     S = max(topo.max_slots, 1)
@@ -379,7 +391,7 @@ def make_fk_jump(topo: KinTopology, device: torch.device | str):
     jnt_free = mask(topo.jnt_type == JNT_FREE)
     site_body = idx(topo.site_bodyid)
 
-    def fk(params: KinParams, qpos: torch.Tensor) -> FKResult:
+    def plain(params: KinParams, qpos: torch.Tensor) -> FKResult:
         F = qpos.shape[0]
         dtype = qpos.dtype
         t = params.body_pos.expand(F, -1, -1)
@@ -451,7 +463,172 @@ def make_fk_jump(topo: KinTopology, device: torch.device | str):
         site_xpos = qm.take(xpos, 1, site_body) + qm.quat_rotate(qm.take(xquat, 1, site_body), params.site_pos)
         return FKResult(xpos=xpos, xquat=xquat, site_xpos=site_xpos, xanchor=xanchor, xaxis=xaxis)
 
-    return _spanned(fk)
+    packed = fk_table(topo)
+    table = torch.as_tensor(packed.table, device=device)  # uploaded once, read by every launch
+
+    def kernel(params: KinParams, qpos: torch.Tensor) -> FKResult:
+        return fk_jump_cuda(table, packed.dims, params, qpos)
+
+    def fk(params: KinParams, qpos: torch.Tensor) -> FKResult:
+        if not qpos.is_cuda:
+            return plain(params, qpos)
+        return FKResult(*_KernelPass.apply(kernel, plain, qpos, *_fields(params)))
+
+    spanned = _spanned(fk)
+    spanned.plain, spanned.kernel = _spanned(plain), _spanned(kernel)
+    return spanned
+
+
+def _fields(obj) -> list:
+    """A dataclass's fields in order (``dataclasses.astuple`` would copy the tensors)."""
+    return [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+
+
+class _KernelPass(torch.autograd.Function):
+    """The kernel's pass, differentiable: the forward launches the kernel;
+    the backward recomputes the pass through the plain body under autograd
+    and returns its vector-Jacobian product. (The JAX package's FK is jnp
+    code with no kernel, so there is no backward of its own to port.)"""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, qpos, *params):
+        ctx.plain = plain
+        ctx.save_for_backward(qpos, *params)
+        ctx.set_materialize_grads(False)  # an output no loss reads gets None and adds no work
+        return tuple(_fields(kernel(KinParams(*params), qpos)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        inputs = [t.detach().requires_grad_(need) for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad[2:])]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = _fields(ctx.plain(KinParams(*inputs[1:]), inputs[0]))
+            pairs = [(o, g) for o, g in zip(out, grads) if o.requires_grad and g is not None]
+            if not pairs or not wanted:
+                return (None,) * (2 + len(inputs))
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs], allow_unused=True))
+        return (None, None, *(next(got) if t.requires_grad else None for t in inputs))
+
+
+# ------------------------------------------------------------ the FK kernel
+
+
+class FkDims(NamedTuple):
+    """The sizes that place ``fk_table``'s sections."""
+
+    nbody: int
+    njnt: int
+    nsite: int
+    nq: int
+    nslot: int  # joint slots per body row (at least 1)
+    nlevel: int  # depth levels below the world body
+
+
+class FkTable(NamedTuple):
+    table: np.ndarray  # int32, the sections below in order
+    dims: FkDims
+
+
+def fk_table(topo: KinTopology) -> FkTable:
+    """The kernel's int32 table of a topology, its sections in order:
+
+    - bodies (nbody, 2 + 3 nslot): parent, depth, then per joint slot its
+      type, qpos address and joint id (``JNT_NONE``, 0, -1 past the body's
+      joints; the world body's row has parent 0 and depth 0);
+    - order (nbody - 1,): the bodies below the world, by depth level, in
+      ascending id within a level (``topo.levels``);
+    - level starts (nlevel + 1,): level l is order[start[l]:start[l + 1]];
+    - joints (njnt, 2): body, type;
+    - sites (nsite,): body.
+
+    The kernel composes a level's bodies once every parent is final, which
+    needs ``body_parentid[b] < b`` (MuJoCo's order; asserted here).
+    """
+    parent = topo.body_parentid
+    if not all(parent[b] < b for b in range(1, topo.nbody)):
+        raise ValueError("fk_table needs every body after its parent (body_parentid[b] < b)")
+    S = max(topo.max_slots, 1)
+    levels = topo.levels if topo.nbody > 1 else []
+    bodies = np.zeros((topo.nbody, 2 + 3 * S), np.int64)
+    bodies[:, 0] = parent
+    for d, lv in enumerate(levels, start=1):
+        bodies[lv, 1] = d
+    bodies[:, 2::3] = topo.slot_type
+    bodies[:, 3::3] = topo.slot_qadr
+    bodies[:, 4::3] = topo.slot_jid
+    order = np.concatenate(levels) if levels else np.zeros(0, np.int64)
+    starts = np.concatenate([[0], np.cumsum([len(lv) for lv in levels])])
+    joints = np.stack([topo.jnt_bodyid, topo.jnt_type], axis=1).reshape(-1)
+    table = np.concatenate([bodies.reshape(-1), order, starts, joints, topo.site_bodyid]).astype(np.int32)
+    dims = FkDims(topo.nbody, topo.njnt, topo.nsite, topo.nq, S, len(levels))
+    return FkTable(table, dims)
+
+
+_fk_fns: dict = {}
+
+
+def _fk_kernel(dtype: torch.dtype):
+    """Build/load ``csrc/fk_jump.cu`` once; returns (the C function for the
+    dtype, the largest frame state it takes in bytes)."""
+    if not _fk_fns:
+        lib = _build.load_library("fk_jump")
+        for name, dt in (("fk_jump_f32", torch.float32), ("fk_jump_f64", torch.float64)):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 12 + [ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _fk_fns[dt] = fn
+        lib.fk_jump_max_frame_bytes.restype = ctypes.c_int
+        _fk_fns["max_frame_bytes"] = int(lib.fk_jump_max_frame_bytes())
+    return _fk_fns[dtype], _fk_fns["max_frame_bytes"]
+
+
+def fk_jump_cuda(table: torch.Tensor, dims: FkDims, params: KinParams, qpos: torch.Tensor) -> FKResult:
+    """One launch of the FK kernel on the current stream: ``qpos (F, nq)``
+    (float32 or float64) and ``params`` on the card that holds the topology
+    as ``fk_table``'s table, the outputs in qpos's dtype (params are taken
+    in it). Allocates the outputs, makes no host sync (so it records into a
+    CUDA graph), raises on what the kernel does not take. The launch sits in
+    a span ``fk.kernel`` and counts as ``LAUNCHES["fk_jump"]``."""
+    nbody, njnt, nsite, nq, nslot, nlevel = dims
+    F, dtype = qpos.shape[0], qpos.dtype
+    shapes = {"qpos": (F, nq), "body_pos": (nbody, 3), "body_quat": (nbody, 4), "jnt_pos": (njnt, 3),
+              "jnt_axis": (njnt, 3), "qpos0": (nq,), "site_pos": (nsite, 3)}
+    given = {k: qpos if k == "qpos" else getattr(params, k) for k in shapes}
+    if not table.is_cuda or dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"fk_jump_cuda takes float32 or float64 on a card, got {dtype} on {table.device}")
+    for k, t in given.items():
+        if t.device != table.device or tuple(t.shape) != shapes[k]:
+            raise ValueError(f"fk_jump_cuda: {k} is {tuple(t.shape)} on {t.device}, "
+                             f"the kernel takes {shapes[k]} on {table.device}")
+    fn, max_bytes = _fk_kernel(dtype)
+    frame_bytes = (nq + 7 * nbody + 6 * njnt + 3 * nsite) * qpos.element_size()
+    if frame_bytes > max_bytes:
+        raise ValueError(f"fk_jump_cuda: a frame's state is {frame_bytes} B, the kernel holds at most {max_bytes} B")
+    ptrs = [t.to(dtype).contiguous() for t in given.values()]
+
+    def new(*shape):
+        return torch.empty((F, *shape), dtype=dtype, device=qpos.device)
+
+    xpos, xquat, site_xpos = new(nbody, 3), new(nbody, 4), new(nsite, 3)
+    if njnt:
+        xanchor, xaxis = new(njnt, 3), new(njnt, 3)
+    else:
+        xanchor, xaxis = (torch.zeros((F, 1, 3), dtype=dtype, device=qpos.device) for _ in range(2))
+    res = FKResult(xpos=xpos, xquat=xquat, site_xpos=site_xpos, xanchor=xanchor, xaxis=xaxis)
+    if F == 0:
+        return res
+    with torch.cuda.device(qpos.device), annotate("fk.kernel"):
+        rc = fn(
+            table.data_ptr(), nbody, njnt, nsite, nq, nslot, nlevel,
+            *(t.data_ptr() for t in ptrs),
+            xpos.data_ptr(), xquat.data_ptr(), site_xpos.data_ptr(),
+            xanchor.data_ptr() if njnt else None, xaxis.data_ptr() if njnt else None,
+            F, torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"fk_jump launch failed: cudaError {rc}")
+    LAUNCHES["fk_jump"] += 1
+    return res
 
 
 def make_site_fk(topo: KinTopology, site_idxs: np.ndarray, device: torch.device | str = "cuda"):

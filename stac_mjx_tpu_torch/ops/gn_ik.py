@@ -42,11 +42,10 @@ from stac_mjx_tpu_torch.models.kinematics import (
     make_fk_jump,
 )
 from stac_mjx_tpu_torch.ops import quat as qm
-from stac_mjx_tpu_torch.ops import spd
 from stac_mjx_tpu_torch.ops.solver import PGResult
 from stac_mjx_tpu_torch.ops.spd import spd_solve
 from stac_mjx_tpu_torch.utils.lanes import while_lanes
-from stac_mjx_tpu_torch.utils.profiling import annotate
+from stac_mjx_tpu_torch.utils.profiling import LAUNCHES, annotate
 
 # The largest frame batch whose flat LM solve replays from a CUDA graph.
 # On an H100 the host dispatches an eager iteration in ~7.5 ms at any F up to
@@ -91,14 +90,12 @@ class _LMGraph:
         self.device = args[4].device  # q0's
         self.static = [t.detach().clone(memory_format=torch.contiguous_format) for t in _tensors(args)]
         static_args = _args(args[0], self.static)
-        before, before_width = spd.KERNEL_LAUNCHES, spd.LAUNCHES_BY_WIDTH.copy()
+        before = LAUNCHES.copy()
         with annotate("lm.capture"):
             self.out = self._capture(lambda: solve(*static_args))
         # A capture launches nothing; each replay launches what it captured.
-        self.launches = spd.KERNEL_LAUNCHES - before
-        self.launches_by_width = spd.LAUNCHES_BY_WIDTH - before_width
-        spd.KERNEL_LAUNCHES = before
-        spd.LAUNCHES_BY_WIDTH.subtract(self.launches_by_width)
+        self.launches = LAUNCHES - before
+        LAUNCHES.subtract(self.launches)
 
     def _capture(self, run) -> PGResult:
         # thread_local: the process group's watchdog thread may query its
@@ -116,8 +113,7 @@ class _LMGraph:
             for s, t in zip(self.static, _tensors(args)):
                 s.copy_(t)
             self._replay()
-            spd.KERNEL_LAUNCHES += self.launches
-            spd.LAUNCHES_BY_WIDTH.update(self.launches_by_width)
+            LAUNCHES.update(self.launches)
             return PGResult(*(o.clone() for o in self.out))
 
 

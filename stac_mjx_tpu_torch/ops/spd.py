@@ -10,26 +10,21 @@ padding are gone: systems stay (F, n, n) row-major.
 On a CUDA tensor the wrapper launches ``csrc/spd_chol.cu`` (f32 only, n up
 to 128: every row in registers up to n = 96, the rows past 96 in shared
 memory above) or raises; each launch runs inside a ``spd`` span
-(``utils.profiling.annotate``). On a CPU tensor it takes the plain PyTorch
-version, ``cholesky_ex`` + ``cholesky_solve``, which puts NaN in x wherever
-the factorization failed, as the kernel and JAX's ``cho_factor`` do.
+(``utils.profiling.annotate``) and counts in ``utils.profiling.LAUNCHES``
+(``"spd_chol"``, and ``("spd_chol", dispatch_width(n))``). On a CPU tensor
+it takes the plain PyTorch version, ``cholesky_ex`` + ``cholesky_solve``,
+which puts NaN in x wherever the factorization failed, as the kernel and
+JAX's ``cho_factor`` do.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
 
 from stac_mjx_tpu_torch.ops import _build
-from stac_mjx_tpu_torch.utils.profiling import annotate
-
-# Launches of the CUDA kernel since the last reset (plain-version calls don't count).
-KERNEL_LAUNCHES = 0
-# The same launches by the kernel's dispatch width: n rounded up to 8, the
-# case of spd_chol_solve_f32's switch that launched them.
-LAUNCHES_BY_WIDTH: collections.Counter = collections.Counter()
+from stac_mjx_tpu_torch.utils.profiling import LAUNCHES, annotate
 
 _fn = None
 _max_n = 0
@@ -56,6 +51,12 @@ def dispatch_width(n: int) -> int:
     return (n + 7) // 8 * 8
 
 
+def launches_by_width(counts=LAUNCHES) -> dict[int, int]:
+    """K1's launches in ``counts`` by dispatch width (the case of
+    spd_chol_solve_f32's switch that launched them)."""
+    return {k[1]: v for k, v in counts.items() if isinstance(k, tuple) and k[0] == "spd_chol" and v}
+
+
 def spd_solve_plain(
     A: torch.Tensor, g: torch.Tensor, lam: torch.Tensor | None = None
 ) -> torch.Tensor:
@@ -72,7 +73,6 @@ def spd_solve_cuda(
     A: torch.Tensor, g: torch.Tensor, lam: torch.Tensor | None = None
 ) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (f32, contiguous, on the card)."""
-    global KERNEL_LAUNCHES
     F, n = g.shape
     tensors = (A, g) if lam is None else (A, g, lam)
     for t in tensors:
@@ -107,8 +107,8 @@ def spd_solve_cuda(
         )
     if rc != 0:
         raise RuntimeError(f"spd_chol_solve_f32 launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES += 1
-    LAUNCHES_BY_WIDTH[dispatch_width(n)] += 1
+    LAUNCHES["spd_chol"] += 1
+    LAUNCHES["spd_chol", dispatch_width(n)] += 1
     return x
 
 

@@ -8,12 +8,18 @@
   a torch profiler records, else a shared no-op. The program opens spans
   where its work happens (``stac.upload``, ``stac.solve``, ``stac.fetch``,
   ``stac.package``, ``lm.solve``, ``lm.capture``, ``lm.replay``,
-  ``lm.iter``, ``lm.jacobian``, ``fk``, ``pg.iter``, ``pg.capture``,
+  ``lm.iter``, ``lm.jacobian``, ``fk``, ``fk.kernel``, ``pg.iter``, ``pg.capture``,
   ``pg.replay``, ``lanes.sync``, ``dist.all_gather``; see
   PERF.md). They appear in any ``torch.profiler`` trace, ``device_trace``'s
   included, on the timeline of the card's kernels; with no profiler a span
   costs one test of the profiler's flag (~0.1 us), records nothing and
   never syncs, allocates or launches.
+- ``LAUNCHES``: launches of the port's hand-written kernels since the last
+  ``LAUNCHES.clear()``, one ``collections.Counter`` keyed by kernel: K1 as
+  ``"spd_chol"`` and by dispatch width as ``("spd_chol", n8)``, the FK
+  kernel as ``"fk_jump"``. Each wrapper adds where it launches; a captured
+  CUDA graph adds what its capture launched at each replay
+  (``gn_ik._LMGraph``). Changed in place, never rebound.
 - ``device_trace(logdir)``: ``torch.profiler`` over the enclosed block (CPU
   activity, and CUDA where a card is present), exported as a Chrome trace
   under ``logdir``; warns and carries on when the profiler cannot start.
@@ -40,6 +46,8 @@ logger = logging.getLogger("stac_mjx_tpu_torch")
 _phase_totals: dict[str, float] = defaultdict(float)
 _phase_counts: dict[str, int] = defaultdict(int)
 _NO_SPAN = contextlib.nullcontext()
+
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def annotate(name: str):

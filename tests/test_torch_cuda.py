@@ -15,6 +15,7 @@ import torch
 
 from _torch_spd_cases import indefinite_batch, spd_systems
 from stac_mjx_tpu_torch.ops import spd
+from stac_mjx_tpu_torch.utils.profiling import LAUNCHES
 
 REPO = Path(__file__).resolve().parent.parent
 if str(REPO) not in sys.path:  # portbench/ sits beside the package
@@ -64,9 +65,9 @@ def test_cuda_kernel_matches_plain(cuda_device, n):
     for F in EDGE_F:
         A, g, lam = spd_systems(F, n, gen, cuda_device)
         for l in (None, lam):
-            before = spd.KERNEL_LAUNCHES
+            before = LAUNCHES["spd_chol"]
             x = spd.spd_solve(A, g, l)
-            assert spd.KERNEL_LAUNCHES == before + 1
+            assert LAUNCHES["spd_chol"] == before + 1
             want = spd.spd_solve_plain(A, g, l)
             torch.cuda.synchronize()
             # float32 Cholesky in another summation order.
@@ -208,16 +209,16 @@ def test_lm_graph_replay_bitwise_as_eager(cuda_device, frames, monkeypatch):
     problems = [(params, kp, q0)] * 3 + [(moved, kp2, q02)]
     graphed, launches = [], []
     for p, k, q in problems:
-        before = spd.KERNEL_LAUNCHES
+        before = LAUNCHES["spd_chol"]
         graphed.append(solve(p, k, q))
-        launches.append(spd.KERNEL_LAUNCHES - before)
+        launches.append(LAUNCHES["spd_chol"] - before)
     (key,) = g._graphs
     assert isinstance(g._graphs[key], gn_ik._LMGraph) and key[4] == (frames == 1)
     monkeypatch.setattr(gn_ik, "_GRAPH_MAX_FRAMES", 0)
     for (p, k, q), got, n in zip(problems, graphed, launches):
-        before = spd.KERNEL_LAUNCHES
+        before = LAUNCHES["spd_chol"]
         want = solve(p, k, q)
-        assert spd.KERNEL_LAUNCHES - before == n == 14
+        assert LAUNCHES["spd_chol"] - before == n == 14
         for f in want._fields:
             assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert not torch.equal(graphed[3].params, graphed[0].params)
@@ -258,9 +259,9 @@ def test_stac_graphed_bitwise_as_eager(cuda_device, monkeypatch):
         outs, launches = [], []
         for _ in range(2):
             for call in (lambda: st.fit_offsets(kp[:250]), lambda: st.ik_only(kp, st._offsets.copy())):
-                before = spd.KERNEL_LAUNCHES
+                before = LAUNCHES["spd_chol"]
                 data = call()
-                launches.append(spd.KERNEL_LAUNCHES - before)
+                launches.append(LAUNCHES["spd_chol"] - before)
                 outs.append({k: v for k, v in data.as_dict().items() if isinstance(v, np.ndarray)})
         return outs, launches, st
 
@@ -296,11 +297,11 @@ def test_cuda_kernel_is_bitwise_as_before_the_wide_layout(cuda_device, n):
     from _torch_spd_cases import fixed_systems
 
     A, g, lam = (t.to(cuda_device) for t in fixed_systems(1250, n, seed=n))
-    before, width_before = spd.KERNEL_LAUNCHES, spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)]
+    before, width_before = LAUNCHES["spd_chol"], LAUNCHES["spd_chol", spd.dispatch_width(n)]
     x = spd.spd_solve(A, g, lam)
     assert hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest() == BEFORE_WIDE[n]
-    assert spd.KERNEL_LAUNCHES == before + 1
-    assert spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)] == width_before + 1
+    assert LAUNCHES["spd_chol"] == before + 1
+    assert LAUNCHES["spd_chol", spd.dispatch_width(n)] == width_before + 1
 
 
 # The wide layout's sizes: its first n, the tethered fly's, the first of the
@@ -327,9 +328,9 @@ def test_cuda_wide_kernel_matches_the_float64_reference(cuda_device, n):
         A, g, lam = spd_systems(F, n, gen, cuda_device)
         idx = torch.arange(0, F, max(1, F // 3000), device=cuda_device)
         for l in (lam, None):
-            before = spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)]
+            before = LAUNCHES["spd_chol", spd.dispatch_width(n)]
             x = spd.spd_solve(A, g, l)
-            assert spd.LAUNCHES_BY_WIDTH[spd.dispatch_width(n)] == before + 1
+            assert LAUNCHES["spd_chol", spd.dispatch_width(n)] == before + 1
             x64 = ref.spd_solve(A[idx], g[idx], None if l is None else l[idx])
             assert bool(torch.isfinite(x).all()), (n, F)
             assert ref.relative_error(x[idx], x64) < 1e-4, (n, F, l is None)
@@ -349,13 +350,13 @@ def test_cuda_kernel_refuses_n_129(cuda_device):
     fn, max_n = spd._kernel()
     assert max_n == 128
     A, g = torch.eye(129, device=cuda_device)[None].contiguous(), torch.ones(1, 129, device=cuda_device)
-    before = spd.KERNEL_LAUNCHES
+    before = LAUNCHES["spd_chol"]
     with pytest.raises(ValueError, match="n <= 128"):
         spd.spd_solve(A, g)
     x = torch.empty_like(g)
     rc = fn(A.data_ptr(), g.data_ptr(), None, x.data_ptr(), 1, 129,
             torch.cuda.current_stream().cuda_stream)
-    assert rc == 1 and spd.KERNEL_LAUNCHES == before
+    assert rc == 1 and LAUNCHES["spd_chol"] == before
 
 
 @pytest.mark.cuda
@@ -370,9 +371,9 @@ def test_fly_ik_on_the_card(cuda_device):
     cell = spec.Cell("fly-lm.ik-session")
     cell.traffic.update(clips=40, pool=1)
     job = ik_fixed.Job(cell, 7, cuda_device)
-    before = spd.LAUNCHES_BY_WIDTH.copy()
+    before = LAUNCHES.copy()
     record = job.call(0)
-    assert dict(spd.LAUNCHES_BY_WIDTH - before) == {104: 20}
+    assert spd.launches_by_width(LAUNCHES - before) == {104: 20}
     res = job.evaluate([record])
     ok, checks = check.judge(res["numbers"], cell.limits)
     assert ok, checks

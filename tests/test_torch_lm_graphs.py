@@ -21,6 +21,7 @@ import torch
 from _torch_common import bridge
 from stac_mjx_tpu_torch.ops import gn_ik, spd
 from stac_mjx_tpu_torch.utils import profiling
+from stac_mjx_tpu_torch.utils.profiling import LAUNCHES
 
 GOLDEN = Path(__file__).parent / "goldens" / "torch_flat_lm.npz"
 NQ, M = 44, 69
@@ -40,10 +41,11 @@ class _EagerGraph(gn_ik._LMGraph):
         return run()
 
     def _replay(self):
-        before = spd.KERNEL_LAUNCHES
+        before = LAUNCHES.copy()
         for o, n in zip(self.out, self.run()):
             o.copy_(n)
-        spd.KERNEL_LAUNCHES = before
+        LAUNCHES.clear()
+        LAUNCHES.update(before)
         self.replays += 1
 
 
@@ -176,19 +178,41 @@ def test_launch_count_as_eager(graphs_on_cpu, golden, monkeypatch):
     three eager ones do."""
 
     def counting(*a):
-        spd.KERNEL_LAUNCHES += 1
+        LAUNCHES["spd_chol"] += 1
         return spd.spd_solve_plain(*a)
 
     monkeypatch.setattr(gn_ik, "spd_solve", counting)
-    monkeypatch.setattr(spd, "KERNEL_LAUNCHES", 0)
+    LAUNCHES.clear()
     g, params, lb, ub = _solver(maxiter=4)
     kp, q0 = _problem(golden)
     counts = []
     for _ in range(3):
         _batch(g, params, kp, q0, lb, ub)
-        counts.append(spd.KERNEL_LAUNCHES)
+        counts.append(LAUNCHES["spd_chol"])
     assert counts == [4, 8, 12]
-    assert graphs_on_cpu[0].launches == 4
+    assert graphs_on_cpu[0].launches == {"spd_chol": 4}
+
+
+def test_fk_launch_count_as_eager(graphs_on_cpu, golden, monkeypatch):
+    """The FK kernel's count in the same counter as K1's: with every FK pass
+    counted as a launch (one before the loop, one an iteration), a capture
+    adds none and a replay adds those it captured."""
+    g, params, lb, ub = _solver(maxiter=4)
+    fk = g.fk
+
+    def counting(*a):
+        LAUNCHES["fk_jump"] += 1
+        return fk(*a)
+
+    monkeypatch.setattr(g, "fk", counting)
+    LAUNCHES.clear()
+    kp, q0 = _problem(golden)
+    counts = []
+    for _ in range(3):
+        _batch(g, params, kp, q0, lb, ub)
+        counts.append(LAUNCHES["fk_jump"])
+    assert counts == [5, 10, 15]
+    assert graphs_on_cpu[0].launches == {"fk_jump": 5}
 
 
 # -------------------------------------------------------------- the key

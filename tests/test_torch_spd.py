@@ -16,6 +16,7 @@ from conftest import x64_mode
 from _torch_spd_cases import indefinite_batch
 from stac_mjx_tpu.ops.spd import _spd_solve_xla_lanes, spd_solve_pallas_lanes, spd_solve_xla
 from stac_mjx_tpu_torch.ops import spd
+from stac_mjx_tpu_torch.utils.profiling import LAUNCHES
 
 
 def _systems(F, n, seed, dtype=np.float64):
@@ -103,7 +104,7 @@ def test_plain_isolates_the_indefinite_system(n):
 
 
 def test_cpu_never_launches_the_kernel():
-    before = spd.KERNEL_LAUNCHES
+    before = LAUNCHES.copy()
     A, g, lam = _systems(4, 5, seed=1)
     spd.spd_solve(torch.as_tensor(A), torch.as_tensor(g), torch.as_tensor(lam))
-    assert spd.KERNEL_LAUNCHES == before
+    assert LAUNCHES == before
