@@ -73,9 +73,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    turns; K1 against its plain version on a chunk's fine-pass systems,
    F = 2,000), in chunks of 4 and 5 clips, and in chunks of 1 and 2 clips on
    the first 10 clips only (qpos bitwise equal to one batch of 40; 34
-   launches per chunk) and the sequential gn-lm ik on 40 clips of 6 frames in
-   segments of 2 frames against one call (qpos within 1e-6; K1 against its
-   plain version on the flat LM's lanes, F = 40);
+   launches per chunk) and the sequential gn-lm ik on 40 clips of 6 frames
+   in one call (K1 launches 112; K1 against its plain version on the flat
+   LM's lanes, F = 40);
 13. profiling: ``utils.profiling.device_trace`` around one main-path ik;
    ``op_table`` must list K1's kernel with 34 launches and ``report()``
    must hold ``ik_only``;
@@ -206,11 +206,12 @@ PARTS_LAUNCHES = (112 + 7 * 14, 34 + 6 * 14)
 # (phase 17's fly: 15 in the coarse pass, 8 in the fine pass and the
 # outputs); a run_stac of the main configuration launches what the main
 # path does (phase 14 makes 1 such run, 3 where mujoco imports); the stall
-# path launches at most that, and the segmented path's count is printed.
+# path launches at most that; the sequential ik 1 + 14 a solve over its 8
+# solves and the outputs pass.
 MAIN_FK_LAUNCHES = (133, 38)
 FK_LAUNCHES_BY_PATH = {"main": 171, "parts": 366, "driver": 171, "distributed_1": 171,
-                       "distributed_2": 2 * 171 + 2 * 38, "wire16": 171, "chunked": 1710, "profiling": 38,
-                       "demo": 0, "fly": 23}
+                       "distributed_2": 2 * 171 + 2 * 38, "wire16": 171, "chunked": 1710, "sequential": 121,
+                       "profiling": 38, "demo": 0, "fly": 23}
 # The default phase's depth (see the cuts above) and its bounds: the card's
 # mean residuals within 5% of the CPU's float64 run (PG stops on a
 # tolerance, so float32 and float64 end at other iterates).
@@ -1167,8 +1168,11 @@ def phase_distributed(spd, device, bundle, main_run, smi: str) -> dict:
 # (tests/test_pipeline.py::test_wire_f16_matches_f32's bound).
 OPT_REL = 0.02
 WIRE_ABS = 2e-4
-CHUNK, SEG_CLIPS, SEG_CLIP, SEG = 8, 40, 6, 2
+CHUNK, SEQ_CLIPS, SEQ_CLIP = 8, 40, 6
 CHUNKS, SMALL_CHUNK_CLIPS = (1, 2, 4, 5), 10
+# The sequential gn-lm ik of SEQ_CLIPS clips: 2 root passes and SEQ_CLIP
+# frames, one 14-iteration LM solve each, the clips on the lanes.
+SEQ_LAUNCHES = 14 * (2 + SEQ_CLIP)
 
 
 def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
@@ -1254,27 +1258,20 @@ def phase_options(spd, device, bundle, main_run, smi: str) -> dict:
         checks[f"chunks of {chunk}: K1 launches {MAIN_LAUNCHES[1]} per chunk"] = n == MAIN_LAUNCHES[1] * (n_clips // chunk)
     checks[f"chunks of {CHUNK}: ik qpos bitwise equal to one batch"] = bool(np.array_equal(runs["chunked"][0][2], one))
 
-    seq = dict(THROUGHPUT, pose_mode="sequential", n_frames_per_clip=SEG_CLIP)
-    kp_s = kp[: SEG_CLIPS * SEG_CLIP]
-    out = {}
-    for seg in (-1, SEG):
-        st = Stac(bundle, dict(seq, seq_segment_frames=seg), device=device)
-        with _capturing(lambda A, lam: A.shape[0] == SEG_CLIPS and lam is None) as captured:
-            launched.clear()
-            out[seg], wall = _sync_time(lambda st=st: st.ik_only(kp_s, fit0.offsets))
-            out[f"{seg}_launches"], out[f"{seg}_wall"] = launched["spd_chol"], wall
-            fk["segmented"] = fk.get("segmented", 0) + launched["fk_jump"]
+    st = Stac(bundle, dict(THROUGHPUT, pose_mode="sequential", n_frames_per_clip=SEQ_CLIP), device=device)
+    with _capturing(lambda A, lam: A.shape[0] == SEQ_CLIPS and lam is None) as captured:
+        launched.clear()
+        seq, wall = _sync_time(lambda: st.ik_only(kp[: SEQ_CLIPS * SEQ_CLIP], fit0.offsets))
+        launches["sequential"], fk["sequential"] = launched["spd_chol"], launched["fk_jump"]
     A, g, lam = captured[0]
     s_plain, s_f64, s_fin = _kernel_vs_plain(spd, A, g, lam)
-    d = float(np.abs(out[SEG].qpos - out[-1].qpos).max())
-    launches["segmented"] = out[f"{SEG}_launches"] + out["-1_launches"]
-    print(f"options: sequential gn-lm ik, {SEG_CLIPS} clips of {SEG_CLIP} frames, segments of {SEG} vs one call: "
-          f"max |qpos delta| {d:.3e}; walls {out[f'{SEG}_wall']:.3f} / {out['-1_wall']:.3f} s; K1 launches "
-          f"{out[f'{SEG}_launches']} / {out['-1_launches']}; K1 on the lanes, F = {A.shape[0]}: vs plain "
-          f"{s_plain:.3e}, vs f64 {s_f64:.3e}; phase wall {time.perf_counter() - t_phase:.2f} s")
-    checks[f"segmented: qpos within {DIST_QPOS_ABS} of one call"] = d <= DIST_QPOS_ABS
-    checks[f"segmented: K1 at F = {SEG_CLIPS} within bound"] = s_plain < KERNEL_REL_TOL and s_f64 < KERNEL_REL_TOL and s_fin
-    print(f"options: FK kernel launches {fk}")
+    print(f"options: sequential gn-lm ik, {SEQ_CLIPS} clips of {SEQ_CLIP} frames in one call: wall {wall:.3f} s; "
+          f"K1 launches {launches['sequential']}; K1 on the lanes, F = {A.shape[0]}: vs plain {s_plain:.3e}, "
+          f"vs f64 {s_f64:.3e}; qpos finite {bool(np.isfinite(seq.qpos).all())}")
+    checks["sequential: qpos finite"] = bool(np.isfinite(seq.qpos).all())
+    checks[f"sequential: K1 launches {SEQ_LAUNCHES}"] = launches["sequential"] == SEQ_LAUNCHES
+    checks[f"sequential: K1 at F = {SEQ_CLIPS} within bound"] = s_plain < KERNEL_REL_TOL and s_f64 < KERNEL_REL_TOL and s_fin
+    print(f"options: FK kernel launches {fk}; phase wall {time.perf_counter() - t_phase:.2f} s")
     checks[f"stall: FK kernel launches at most {sum(MAIN_FK_LAUNCHES)}"] = fk["stall"] <= sum(MAIN_FK_LAUNCHES)
     _check_all("options", checks)
     return {"launches": launches, "fk": fk}

@@ -63,10 +63,13 @@ class MujocoConfig:
 class StacConfig:
     """Pipeline configuration. The fields after ``mujoco`` are the JAX
     package's extensions; their meaning is documented there, and each has
-    its effect here too, with two exceptions accepted without effect:
+    its effect here too, with three exceptions accepted without effect:
     ``spd_impl`` (on the card the flat LM always solves through the CUDA
-    kernel) and ``mesh_axis`` (no effect in the JAX package either). One
-    automatic value differs: ``ik_chunk_clips=0`` leaves the ik in one batch
+    kernel), ``mesh_axis`` (no effect in the JAX package either) and
+    ``seq_segment_frames`` (the JAX package's segments bound a TPU program's
+    size; the port's sequential pass is a host loop over frames, so a
+    segment changes no work and the pass runs as one call). One automatic
+    value differs: ``ik_chunk_clips=0`` leaves the ik in one batch
     (``Stac._ik_chunk``)."""
 
     fit_offsets_path: str

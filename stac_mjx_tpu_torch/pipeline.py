@@ -8,10 +8,9 @@ chained). ``fit_offsets_program`` runs the root solve, N x (pose pass,
 m-phase) and a final pose pass; ``ik_only_program`` runs each clip's root
 solve, then its pose pass (lockstep: one flat batch over every frame of
 every clip, optionally hierarchical; sequential: the per-clip chains side by
-side, the clips riding the lanes). ``fit_offsets_sharded`` is the fit over
-one rank's block of frames with the m-phase statistics all-reduced over a
-torch.distributed group; ``ik_sequential_segment`` is a bounded slice of the
-sequential ik, its warm start carried between calls.
+side, the clips riding the lanes). Given a torch.distributed group,
+``fit_offsets_program`` fits one rank's block of frames with the m-phase
+statistics all-reduced over the group.
 """
 
 from __future__ import annotations
@@ -311,8 +310,17 @@ def fit_offsets_program(
     group=None,
 ) -> dict:
     """The alternating calibration: root solve on frame 0, then n_iters x
-    (pose pass, m-phase), then a final pose pass. ``group``: see
-    ``fit_offsets_sharded``.
+    (pose pass, m-phase), then a final pose pass.
+
+    With ``group`` (a torch.distributed group), kp_data is this rank's block
+    of frames and the fit is the JAX package's ``fit_offsets_sharded``
+    schedule on one shard: the root solve on the shard's first frame, the
+    lockstep pose passes on its frames, and the m-phase with its statistics
+    all-reduced over the group (the JAX ``psum``; see
+    ``offset_optimization`` for the sample). Over one rank it is the
+    unsharded fit exactly. Raises ValueError unless lockstep: the
+    sequential warm-start chain is a cross-frame dependency that cannot
+    shard over frames.
 
     Each pass starts from the LAST frame's pose of the pass before (the
     root solve's pose for the first): the sequential chain's frame 0 starts
@@ -321,6 +329,9 @@ def fit_offsets_program(
     first start every frame from its own previous solution instead, at that
     budget. As the JAX program does.
     """
+    lockstep = cfg.pose_mode == "lockstep"
+    if group is not None and not lockstep:
+        raise ValueError("a fit sharded over frames requires pose_mode=lockstep")
     site_idxs = core.site_idxs_t
     q = params.qpos0
     offsets = params.site_pos[site_idxs]
@@ -328,7 +339,6 @@ def fit_offsets_program(
     if cfg.do_root_opt and cfg.root_kp_idx >= 0:
         q = root_optimization(core, cfg, params, kp_data[0], q, lb, ub)
 
-    lockstep = cfg.pose_mode == "lockstep"
     warm_iters = cfg.fit_warm_iters if cfg.fit_warm_iters > 0 else None
     frame_errors, m_errors = [], []
     q_warm = None
@@ -363,74 +373,6 @@ def fit_offsets_program(
     if return_full:
         out.update(xpos=xposes, xquat=xquats, marker_sites=marker_sites)
     return out
-
-
-def fit_offsets_sharded(
-    core: StacCore,
-    cfg: StacConfigStatic,
-    params: KinParams,
-    kp_local: torch.Tensor,
-    lb: torch.Tensor,
-    ub: torch.Tensor,
-    is_regularized: torch.Tensor,
-    group=None,
-) -> dict:
-    """The frame-sharded fit on this rank's block of frames kp_local (F_local, 3K).
-
-    The JAX package's ``fit_offsets_sharded`` schedule on one shard: the root
-    solve on the shard's first frame, the lockstep pose passes on the shard's
-    frames (the warm-pass schedule included), and the m-phase with its
-    statistics all-reduced over the torch.distributed ``group`` (the JAX
-    ``psum``; see ``offset_optimization`` for the sample). Over one rank it
-    is ``fit_offsets_program`` exactly. Returns ``fit_offsets_program``'s
-    dict with the full payload: this rank's frames, the offsets and m-phase
-    errors being the same on every rank. Raises ValueError unless lockstep.
-    """
-    if cfg.pose_mode != "lockstep":
-        raise ValueError(
-            "fit_offsets_sharded requires pose_mode=lockstep: the sequential "
-            "warm-start chain is a cross-frame dependency that cannot shard over frames"
-        )
-    return fit_offsets_program(
-        core, cfg, params, kp_local, lb, ub, is_regularized, return_full=True, group=group
-    )
-
-
-def ik_sequential_segment(
-    core: StacCore,
-    cfg: StacConfigStatic,
-    params: KinParams,
-    kp_seg: torch.Tensor,
-    q_carry: torch.Tensor,
-    offsets: torch.Tensor,
-    lb: torch.Tensor,
-    ub: torch.Tensor,
-    return_full: bool = True,
-    first_segment: bool = False,
-):
-    """One segment of the sequential ik: kp_seg (C, S, 3K) is an S-frame
-    slice of every clip, q_carry (C, nq) each clip's last pose so far
-    (qpos0 for the first segment, which also runs each clip's root solve on
-    its frame 0). The chain is frame by frame, so segments chained through
-    the carry give the one-call ik's poses. Returns (q_carry_out, *outputs)
-    with ``ik_only_program``'s outputs, each (C, S, ...)."""
-    if cfg.pose_mode != "sequential":
-        raise ValueError("segmented ik requires pose_mode=sequential")
-    params = params.set_site_pos(offsets, core.site_idxs_t)
-    C, S = kp_seg.shape[0], kp_seg.shape[1]
-    q = q_carry
-    if first_segment and cfg.do_root_opt and cfg.root_kp_idx >= 0:
-        q = root_optimization(core, cfg, params, kp_seg[:, 0], q, lb, ub)
-    q_last, qposes = _pose_sequential(core, cfg, params, kp_seg, q, lb, ub)
-    qposes = qposes.reshape(C * S, -1)
-    outs = _frame_outputs(core, params, kp_seg.reshape(C * S, -1), qposes)
-
-    def shape(a):
-        return a.reshape(C, S, *a.shape[1:])
-
-    if not return_full:
-        return q_last, shape(qposes), shape(outs[-1])
-    return (q_last, shape(qposes)) + tuple(shape(a) for a in outs)
 
 
 def ik_only_program(

@@ -1,7 +1,6 @@
 """Stac orchestrator (port of ``stac_mjx_tpu/stac.py``: fit and ik in every
 pose mode, q_solver, fk_impl and part schedule of the JAX package, its
-float16 wire, segmented sequential runs, chunked ik and the multi-process
-entry points).
+float16 wire, chunked ik and the multi-process entry points).
 
 Built from a compiled model's arrays (a bundle: ``bridge.load_bundle()``,
 or ``bridge.bundle_for_config``, which compiles the MJCF where no checked-in
@@ -18,7 +17,11 @@ Execution differs from the JAX package in one way: its ``Stac.ik_only``
 shards clips over every chip its one process sees, while here ``ik_only``
 solves on the Stac's own device and several cards are served by one process
 each (``parallel.distributed``: ``fit_offsets_sharded``, ``ik_only_global``).
-Clips are independent, so the results are the same.
+Clips are independent, so the results are the same. The four entries call
+two bodies, ``_fit`` and ``_ik``: upload, ``pipeline`` program, fetch and
+package. ``stac.seq_segment_frames`` is accepted without effect: the JAX
+package's segments bound a TPU program's size, while here the sequential
+pass is a host loop over frames.
 """
 
 from __future__ import annotations
@@ -37,12 +40,31 @@ from stac_mjx_tpu_torch.io import StacData  # re-exported: the output container 
 from stac_mjx_tpu_torch.models.kinematics import JNT_FREE, JNT_SLIDE
 from stac_mjx_tpu_torch.models.setup import model_setup
 from stac_mjx_tpu_torch.ops.stac_core import StacCore
+from stac_mjx_tpu_torch.parallel import distributed
 from stac_mjx_tpu_torch.utils import profiling
 from stac_mjx_tpu_torch.utils.batching import batch_kp_data
+
+# The outputs that travel in float16 on the float16 wire; offsets and errors
+# keep the compute dtype.
+_POSITIONAL = ("qpos", "xpos", "xquat", "marker_sites")
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def _pinned(out: dict, copier: torch.cuda.Stream) -> dict:
+    """``out``'s device tensors copied to pinned host memory on the side
+    stream ``copier`` once the current stream's work is done; read them
+    after ``copier.synchronize()``."""
+    copier.wait_stream(torch.cuda.current_stream(copier.device))
+    host = {}
+    with torch.cuda.stream(copier):
+        for k, a in out.items():
+            host[k] = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            host[k].copy_(a, non_blocking=True)
+            a.record_stream(copier)
+    return host
 
 
 def wire_encode(kp: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -165,181 +187,164 @@ class Stac:
             fit_warm_iters=int(get("fit_warm_iters", 0) or 0),
         )
 
-    def _to_device(self, kp) -> torch.Tensor:
-        """Keypoints travel as float32 (the JAX package's f32 wire), then take the compute dtype."""
-        if isinstance(kp, torch.Tensor):
-            kp = kp.to(self.device, torch.float32)
-        else:
-            kp = torch.as_tensor(np.array(kp, np.float32), device=self.device)
-        return kp.to(self.dtype)
-
     @staticmethod
     def _error_stats(errors) -> tuple[float, float]:
         flat = np.asarray(errors).reshape(-1)
         return float(np.mean(flat)), float(np.std(flat))
 
-    # ------------------------------------------------------- float16 wire
+    # --------------------------------------------- the wire: upload, fetch
 
-    def _wire_up(self, kp_host: np.ndarray):
-        """The float16 uplink of host keypoints: (keypoints decoded on the
-        device in the compute dtype, the centre on the device)."""
+    def _upload(self, kp_data, clip: int = 0, local: bool = False):
+        """(the host keypoints the artifact packages, the keypoints on the
+        device in the compute dtype, the float16 wire's centre or None).
+
+        The caller's keypoints become one host float32 array, batched into
+        clips of ``clip`` frames if > 0, sent as float32 or mean-centred
+        float16 (``wire_encode``), and packaged in the compute dtype on the
+        float32 wire. A rank's block (``local``) is sent as float32 and
+        its host array is the gather of every rank's (None here)."""
+        if local:
+            return None, torch.as_tensor(kp_data).to(self.device, torch.float32).to(self.dtype), None
+        kp_host = np.array(_numpy(kp_data) if isinstance(kp_data, torch.Tensor) else kp_data, np.float32)
+        if clip:
+            kp_host = batch_kp_data(kp_host, clip, continuous=bool(self.stac_cfg.get("continuous", False)))
+        if self._wire_dtype == "float32":
+            kp = torch.as_tensor(kp_host, device=self.device).to(self.dtype)
+            return kp_host.astype(torch.empty(0, dtype=self.dtype).numpy().dtype, copy=False), kp, None
         send, center = wire_encode(kp_host)
         center_t = torch.as_tensor(center, device=self.device)
-        kp_w = torch.as_tensor(send, device=self.device)
-        shape = kp_w.shape
-        kp = (kp_w.to(torch.float32).reshape(*shape[:-1], -1, 3) + center_t).reshape(shape)
-        return kp.to(self.dtype), center_t
+        kp = (torch.as_tensor(send, device=self.device).to(torch.float32).reshape(*send.shape[:-1], -1, 3)
+              + center_t).reshape(send.shape)
+        return kp_host, kp.to(self.dtype), center_t
 
-    def _wire_down(self, center_t: torch.Tensor, arrays: list) -> list:
-        """Device side of the float16 downlink of [qpos] or [qpos, xpos,
-        xquat, marker_sites]: positions centred (qpos[:3] of a free or slide
-        root, xpos but the worldbody row, the markers), then float16."""
-        q = arrays[0]
-        c = center_t.to(q.dtype)
+    def _wire_down(self, out: dict, center_t) -> dict:
+        """Device side of the float16 downlink (none without a centre): the
+        positional outputs centred (qpos[:3] of a free or slide root, xpos
+        but the worldbody row, the markers), then float16; the offsets and
+        errors keep the compute dtype."""
+        if center_t is None:
+            return out
+        down = dict(out)
+        c = center_t.to(out["qpos"].dtype)
         if not self._fixed:
-            q = torch.cat([q[..., :3] - c, q[..., 3:]], dim=-1)
-        out = [q]
-        if len(arrays) > 1:
-            xpos, xquat, markers = arrays[1:]
-            out += [torch.cat([xpos[..., :1, :], xpos[..., 1:, :] - c], dim=-2), xquat, markers - c]
-        return [a.to(torch.float16) for a in out]
+            down["qpos"] = torch.cat([out["qpos"][..., :3] - c, out["qpos"][..., 3:]], dim=-1)
+        if "xpos" in out:
+            down["xpos"] = torch.cat([out["xpos"][..., :1, :], out["xpos"][..., 1:, :] - c], dim=-2)
+            down["marker_sites"] = out["marker_sites"] - c
+        return {k: v.to(torch.float16) if k in _POSITIONAL else v for k, v in down.items()}
 
-    def _wire_unpack(self, center: np.ndarray, arrays: list) -> list:
-        """Host side of the downlink: float32, the centre added back."""
-        arrs = [np.asarray(a, np.float32) for a in arrays]
+    def _fetch(self, out: dict, center_t, mesh=None) -> dict:
+        """Outputs to the host as numpy: gathered over ``mesh``'s ranks in
+        rank order (``parallel.distributed.fetch_arrays``; the offsets and
+        m-phase errors are every rank's alike), else copied; the float16
+        downlink unpacked to float32 with the centre added back."""
+        if mesh is None:
+            host = {k: _numpy(v) for k, v in out.items()}
+        else:
+            host = {k: _numpy(v) if k in ("offsets", "iter_m_errors")
+                    else distributed.fetch_arrays(v, mesh, dim=int(k == "iter_frame_errors"))
+                    for k, v in out.items()}
+        if center_t is None:
+            return host
+        center = _numpy(center_t)
+        host.update({k: np.asarray(v, np.float32) for k, v in host.items() if k in _POSITIONAL})
         if not self._fixed:
-            arrs[0][..., :3] += center
-        if len(arrs) > 1:
-            arrs[1][..., 1:, :] += center
-            arrs[3] += center
-        return arrs
+            host["qpos"][..., :3] += center
+        if "xpos" in host:
+            host["xpos"][..., 1:, :] += center
+            host["marker_sites"] += center
+        return host
 
-    # --------------------------------------------------------------- fit
+    # ------------------------------------------------------------ bodies
+
+    def _fit(self, phase: str, kp_data, cfg, return_full: bool, mesh=None) -> StacData:
+        """upload -> ``pipeline.fit_offsets_program`` -> fetch -> package,
+        each a span inside the ``phase`` span. With ``mesh``, kp_data is
+        this rank's block of frames and the m-phase's statistics are
+        all-reduced over its group."""
+        with profiling.phase(phase):
+            with profiling.annotate("stac.upload"):
+                kp_host, kp, center_t = self._upload(kp_data, local=mesh is not None)
+            with profiling.annotate("stac.solve"):
+                out = pipeline.fit_offsets_program(
+                    self.stac_core_obj, cfg, self.params, kp, self._lb, self._ub, self._is_regularized,
+                    return_full=return_full, group=None if mesh is None else mesh.group,
+                )
+                out = self._wire_down(out, center_t)
+            with profiling.annotate("stac.fetch"):
+                host = self._fetch(out, center_t, mesh)
+                if mesh is not None:
+                    kp_host = distributed.fetch_arrays(kp, mesh)
+            with profiling.annotate("stac.package"):
+                for i in range(cfg.n_iters):
+                    mean, std = self._error_stats(host["iter_frame_errors"][i])
+                    print(
+                        f"Calibration iteration {i + 1}/{cfg.n_iters}: "
+                        f"mean marker error {mean:.6g} m (std {std:.6g}); "
+                        f"m-phase residual {host['iter_m_errors'][i]:.6g}"
+                    )
+                mean, std = self._error_stats(host["frame_error"])
+                head = "Final pose optimization" if mesh is None else f"fit_offsets (sharded over {mesh.size} ranks)"
+                print(f"{head}: mean marker error {mean:.6g} m (std {std:.6g})")
+                self._offsets = host["offsets"]
+                return self._package_data(
+                    host["qpos"], host.get("xpos"), host.get("xquat"), host.get("marker_sites"), kp_host
+                )
+
+    def _ik(self, phase: str, kp_data, offsets, return_full: bool, clip: int = 0, mesh=None) -> StacData:
+        """upload -> ``pipeline.ik_only_program`` -> fetch -> package, each
+        a span inside the ``phase`` span. Without ``mesh``, kp_data (F, 3K)
+        is batched into clips of ``clip`` frames on the host, and the clips
+        may go in chunks (``_ik_chunk``), each solved and fetched in turn;
+        on a card chunk i-1's outputs are copied to pinned host memory on a
+        side stream while chunk i is solved. Clips are independent: the
+        results are one batch's. With ``mesh``, kp_data is this rank's
+        block of clips (C_local, Fc, 3K), the outputs gathered in rank
+        order."""
+        keys = ("qpos", "xpos", "xquat", "marker_sites", "frame_error") if return_full else ("qpos", "frame_error")
+        with profiling.phase(phase):
+            with profiling.annotate("stac.upload"):
+                kp_host, kp, center_t = self._upload(kp_data, clip, local=mesh is not None)
+                offsets = torch.as_tensor(np.array(offsets), device=self.device).to(self.dtype)
+            n_clips = kp.shape[0]
+            chunk = (self._ik_chunk(n_clips) if mesh is None else 0) or n_clips
+            copier = torch.cuda.Stream(self.device) if chunk < n_clips and kp.is_cuda else None
+            parts = []
+            for i in range(0, n_clips, chunk):
+                with profiling.annotate("stac.solve"):
+                    out = pipeline.ik_only_program(
+                        self.stac_core_obj, self._static_cfg, self.params, kp[i : i + chunk], offsets,
+                        self._lb, self._ub, return_full=return_full,
+                    )
+                    out = self._wire_down(dict(zip(keys, out)), center_t)
+                with profiling.annotate("stac.fetch"):
+                    parts.append(self._fetch(out, center_t, mesh) if copier is None else _pinned(out, copier))
+                    if i + chunk < n_clips:
+                        continue  # the last chunk's fetch also joins the chunks
+                    if copier is not None:
+                        copier.synchronize()
+                        parts = [self._fetch(p, center_t) for p in parts]
+                    host = {k: np.concatenate([p[k] for p in parts]) for k in keys} if len(parts) > 1 else parts[0]
+                    if mesh is not None:
+                        kp_host = distributed.fetch_arrays(kp, mesh)
+                    self._offsets = _numpy(offsets)
+            with profiling.annotate("stac.package"):
+                mean, std = self._error_stats(host["frame_error"])
+                print(f"ik_only: mean marker error {mean:.6g} m (std {std:.6g})")
+                return self._package_data(
+                    host["qpos"], host.get("xpos"), host.get("xquat"), host.get("marker_sites"), kp_host,
+                    batched=True,
+                )
+
+    # ------------------------------------------------------------ entries
 
     def fit_offsets(self, kp_data, return_full=None) -> StacData:
-        """Alternating pose/offset calibration on kp_data (F, 3K).
-
-        Sequential mode runs each pose pass as segments of
-        ``_seq_segment_frames`` frames (``_fit_offsets_segmented``); with
+        """Alternating pose/offset calibration on kp_data (F, 3K); with
         stac.wire_dtype=float16 the keypoints and the positional results
         travel in float16 (offsets and errors keep the compute dtype)."""
         if return_full is None:
             return_full = bool(self.stac_cfg.get("fit_return_full", True))
-        wire16 = self._wire_dtype == "float16"
-        with profiling.phase("fit_offsets"):
-            with profiling.annotate("stac.upload"):
-                if wire16:
-                    kp_host = np.array(kp_data.cpu() if isinstance(kp_data, torch.Tensor) else kp_data, np.float32)
-                    kp, center_t = self._wire_up(kp_host)
-                else:
-                    kp = self._to_device(kp_data)
-                    kp_host = _numpy(kp)
-            seg = 0 if wire16 else self._seq_segment_frames(kp.shape[0])
-            with profiling.annotate("stac.solve"):
-                if seg:
-                    out = self._fit_offsets_segmented(kp, return_full, seg)
-                else:
-                    out = pipeline.fit_offsets_program(
-                        self.stac_core_obj,
-                        self._static_cfg,
-                        self.params,
-                        kp,
-                        self._lb,
-                        self._ub,
-                        self._is_regularized,
-                        return_full=return_full,
-                    )
-                pos = ["qpos"] + (["xpos", "xquat", "marker_sites"] if return_full else [])
-                if wire16:
-                    out.update(zip(pos, self._wire_down(center_t, [out[k] for k in pos])))
-            with profiling.annotate("stac.fetch"):
-                out = {k: _numpy(v) for k, v in out.items()}
-                if wire16:
-                    out.update(zip(pos, self._wire_unpack(_numpy(center_t), [out[k] for k in pos])))
-            with profiling.annotate("stac.package"):
-                for i in range(self._static_cfg.n_iters):
-                    mean, std = self._error_stats(out["iter_frame_errors"][i])
-                    print(
-                        f"Calibration iteration {i + 1}/{self._static_cfg.n_iters}: "
-                        f"mean marker error {mean:.6g} m (std {std:.6g}); "
-                        f"m-phase residual {out['iter_m_errors'][i]:.6g}"
-                    )
-                mean, std = self._error_stats(out["frame_error"])
-                print(f"Final pose optimization: mean marker error {mean:.6g} m (std {std:.6g})")
-                self._offsets = out["offsets"]
-                return self._package_data(
-                    out["qpos"],
-                    out.get("xpos"),
-                    out.get("xquat"),
-                    out.get("marker_sites"),
-                    kp_host,
-                )
-
-    def _fit_offsets_segmented(self, kp: torch.Tensor, return_full: bool, seg: int) -> dict:
-        """The sequential fit with each pose pass split into ``seg``-frame
-        segments (``pipeline.ik_sequential_segment`` on one clip): the warm
-        start chains across segments and passes as in the one-call program,
-        and the m-phase runs between passes. Returns
-        ``fit_offsets_program``'s dict."""
-        core, cfg = self.stac_core_obj, self._static_cfg
-        params = self.params
-        F = kp.shape[0]
-        offsets = params.site_pos[core.site_idxs_t]
-        q = params.qpos0
-        if cfg.do_root_opt and cfg.root_kp_idx >= 0:
-            q = pipeline.root_optimization(core, cfg, params, kp[0], q, self._lb, self._ub)
-
-        def pose_pass(q_carry, full):
-            parts = []
-            for s0 in range(0, F, seg):
-                res = pipeline.ik_sequential_segment(
-                    core, cfg, params, kp[None, s0 : s0 + seg], q_carry[None], offsets,
-                    self._lb, self._ub, return_full=full,
-                )
-                q_carry = res[0][0]
-                parts.append([a[0] for a in res[1:]])
-            return q_carry, [torch.cat(col, dim=0) for col in zip(*parts)]
-
-        frame_errors, m_errors = [], []
-        for _ in range(cfg.n_iters):
-            q, (qposes, errors) = pose_pass(q, False)
-            _, offsets, m_err = pipeline.offset_optimization(
-                core, cfg, params.set_site_pos(offsets, core.site_idxs_t), kp, offsets, qposes,
-                self._is_regularized,
-            )
-            frame_errors.append(errors)
-            m_errors.append(m_err)
-        q, outs = pose_pass(q, return_full)
-        out = {
-            "qpos": outs[0],
-            "offsets": offsets,
-            "frame_error": outs[-1],
-            "iter_frame_errors": torch.stack(frame_errors) if frame_errors else kp.new_zeros((0, F)),
-            "iter_m_errors": torch.stack(m_errors) if m_errors else kp.new_zeros((0,)),
-        }
-        if return_full:
-            out.update(xpos=outs[1], xquat=outs[2], marker_sites=outs[3])
-        return out
-
-    # ---------------------------------------------------------------- ik
-
-    def _seq_segment_frames(self, clip_len: int) -> int:
-        """Frames per segment of a sequential run (0 = one call).
-
-        stac.seq_segment_frames: > 0 that many (at most the clip), -1 off,
-        0 auto: the JAX rule, 10-frame segments on an accelerator (here a
-        CUDA device) for clips longer than 25 frames, one call otherwise.
-        Segments chain the warm start, so they change no pose."""
-        if self._static_cfg.pose_mode != "sequential":
-            return 0
-        seg = int(self.stac_cfg.get("seq_segment_frames", 0) or 0)
-        if seg < 0:
-            return 0
-        if seg:
-            return min(seg, clip_len)
-        if self.device.type != "cuda" or clip_len <= 25:
-            return 0
-        return 10
+        return self._fit("fit_offsets", kp_data, self._static_cfg, return_full)
 
     def _ik_chunk(self, n_clips: int) -> int:
         """Clips per chunk of the ik (0 = one batch).
@@ -357,119 +362,15 @@ class Stac:
             return 0
         return chunk if (chunk < n_clips and n_clips % chunk == 0) else 0
 
-    def _ik_only_segmented(self, batched_kp, offsets, return_full, seg) -> list:
-        """The sequential ik in ``seg``-frame segments of every clip
-        (``pipeline.ik_sequential_segment``), the (C, nq) warm start carried
-        on the device; a segment's outputs are fetched after the next one
-        is issued. Returns the outputs as numpy, (C, Fc, ...)."""
-        core, cfg = self.stac_core_obj, self._static_cfg
-        C, Fc = batched_kp.shape[0], batched_kp.shape[1]
-        q_carry = self.params.qpos0.expand(C, -1)
-        parts, pending = [], None
-        for s0 in range(0, Fc, seg):
-            with profiling.annotate("stac.solve"):
-                res = pipeline.ik_sequential_segment(
-                    core, cfg, self.params, batched_kp[:, s0 : s0 + seg], q_carry, offsets,
-                    self._lb, self._ub, return_full=return_full, first_segment=s0 == 0,
-                )
-            q_carry = res[0]
-            if pending is not None:
-                with profiling.annotate("stac.fetch"):
-                    parts.append([_numpy(a) for a in pending])
-            pending = res[1:]
-        with profiling.annotate("stac.fetch"):
-            parts.append([_numpy(a) for a in pending])
-        return [np.concatenate(col, axis=1) for col in zip(*parts)]
-
-    @staticmethod
-    def _ik_chunked(solve, batched_kp: torch.Tensor, chunk: int) -> list:
-        """``solve`` on each chunk of ``chunk`` clips in turn; on a card, chunk
-        i-1's outputs are copied to pinned host memory on a side stream while
-        chunk i is solved. Clips are independent: the results are one
-        batch's. Returns the outputs as numpy, concatenated over clips."""
-        starts = range(0, batched_kp.shape[0], chunk)
-        cuda = batched_kp.is_cuda
-        copier = torch.cuda.Stream(batched_kp.device) if cuda else None
-        parts = []
-        for i in starts:
-            with profiling.annotate("stac.solve"):
-                outs = solve(batched_kp[i : i + chunk])
-            with profiling.annotate("stac.fetch"):
-                if not cuda:
-                    parts.append([_numpy(a) for a in outs])
-                    continue
-                copier.wait_stream(torch.cuda.current_stream(batched_kp.device))
-                with torch.cuda.stream(copier):
-                    host = []
-                    for a in outs:
-                        h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                        h.copy_(a, non_blocking=True)
-                        a.record_stream(copier)
-                        host.append(h)
-                parts.append(host)
-        if cuda:
-            with profiling.annotate("stac.fetch"):
-                copier.synchronize()
-                parts = [[h.numpy() for h in p] for p in parts]
-        return [np.concatenate(col, axis=0) for col in zip(*parts)]
-
     def ik_only(self, kp_data, offsets, return_full=None) -> StacData:
-        """Batched IK with frozen offsets over clips of stac.n_frames_per_clip.
-
-        One batch on the Stac's device, or chunks of clips (``_ik_chunk``), or
-        in sequential mode segments of frames (``_seq_segment_frames``, which
-        takes precedence); with stac.wire_dtype=float16 the keypoints and
-        positional results travel in float16 (the per-frame errors keep the
-        compute dtype, the artifact the float32 keypoints)."""
+        """Batched IK with frozen offsets over clips of stac.n_frames_per_clip:
+        one batch on the Stac's device, or chunks of clips (``_ik_chunk``);
+        with stac.wire_dtype=float16 the keypoints and positional results
+        travel in float16 (the per-frame errors keep the compute dtype, the
+        artifact the float32 keypoints)."""
         if return_full is None:
             return_full = bool(self.stac_cfg.get("ik_return_full", True))
-        clip = int(self.stac_cfg["n_frames_per_clip"])
-        continuous = bool(self.stac_cfg.get("continuous", False))
-        wire16 = self._wire_dtype == "float16"
-        with profiling.phase("ik_only"):
-            with profiling.annotate("stac.upload"):
-                if wire16:
-                    kp_host = np.array(kp_data.cpu() if isinstance(kp_data, torch.Tensor) else kp_data, np.float32)
-                    kp_host = batch_kp_data(kp_host, clip, continuous=continuous)
-                    batched_kp, center_t = self._wire_up(kp_host)
-                else:
-                    batched_kp = batch_kp_data(self._to_device(kp_data), clip, continuous=continuous)
-                offsets = torch.as_tensor(np.array(offsets), device=self.device).to(self.dtype)
-            seg = 0 if wire16 else self._seq_segment_frames(batched_kp.shape[1])
-            chunk = 0 if seg else self._ik_chunk(batched_kp.shape[0])
-
-            def solve(kp):
-                out = pipeline.ik_only_program(
-                    self.stac_core_obj, self._static_cfg, self.params, kp, offsets,
-                    self._lb, self._ub, return_full=return_full,
-                )
-                if wire16:
-                    return self._wire_down(center_t, list(out[:-1])) + [out[-1]]
-                return out
-
-            if seg:
-                out = self._ik_only_segmented(batched_kp, offsets, return_full, seg)
-            elif chunk:
-                out = self._ik_chunked(solve, batched_kp, chunk)
-            else:
-                with profiling.annotate("stac.solve"):
-                    out = solve(batched_kp)
-            with profiling.annotate("stac.fetch"):
-                if not (seg or chunk):
-                    out = [_numpy(a) for a in out]
-                if wire16:
-                    out = self._wire_unpack(_numpy(center_t), out[:-1]) + [out[-1]]
-                else:
-                    kp_host = _numpy(batched_kp)
-                self._offsets = _numpy(offsets)
-            with profiling.annotate("stac.package"):
-                if return_full:
-                    qposes, xposes, xquats, marker_sites, errors = out
-                else:
-                    (qposes, errors), xposes, xquats, marker_sites = out, None, None, None
-                mean, std = self._error_stats(errors)
-                print(f"ik_only: mean marker error {mean:.6g} m (std {std:.6g})")
-                return self._package_data(qposes, xposes, xquats, marker_sites, kp_host, batched=True)
+        return self._ik("ik_only", kp_data, offsets, return_full, clip=int(self.stac_cfg["n_frames_per_clip"]))
 
     # ------------------------------------------------------- distributed
 
@@ -478,58 +379,20 @@ class Stac:
         group; the world group by default): kp_local (F_local, 3K) is this
         rank's block of frames, every block the same length. Lockstep
         whatever the configured pose mode; the m-phase statistics are
-        all-reduced over the ranks (``pipeline.fit_offsets_sharded``). The
-        outputs are gathered in rank order, so every rank returns the whole
-        fit. Collective: every rank calls it."""
-        from stac_mjx_tpu_torch.parallel.distributed import fetch_arrays, pod_mesh
-
-        mesh = pod_mesh() if mesh is None else mesh
+        all-reduced over the ranks (``pipeline.fit_offsets_program`` over
+        the mesh's group). The outputs are gathered in rank order, so every
+        rank returns the whole fit. Collective: every rank calls it."""
+        mesh = distributed.pod_mesh() if mesh is None else mesh
         cfg = dataclasses.replace(self._static_cfg, pose_mode="lockstep")
-        with profiling.phase("fit_offsets_sharded"):
-            with profiling.annotate("stac.upload"):
-                kp = self._to_device(kp_local)
-            with profiling.annotate("stac.solve"):
-                out = pipeline.fit_offsets_sharded(
-                    self.stac_core_obj, cfg, self.params, kp, self._lb, self._ub,
-                    self._is_regularized, group=mesh.group,
-                )
-            with profiling.annotate("stac.fetch"):
-                sharded = ("qpos", "xpos", "xquat", "marker_sites", "frame_error")
-                host = fetch_arrays({k: out[k] for k in sharded}, mesh)
-                host["iter_frame_errors"] = fetch_arrays(out["iter_frame_errors"], mesh, dim=1)
-                host["offsets"], host["iter_m_errors"] = _numpy(out["offsets"]), _numpy(out["iter_m_errors"])
-                kp_all = fetch_arrays(kp, mesh)
-            with profiling.annotate("stac.package"):
-                mean, std = self._error_stats(host["frame_error"])
-                print(f"fit_offsets (sharded over {mesh.size} ranks): mean marker error {mean:.6g} m (std {std:.6g})")
-                self._offsets = host["offsets"]
-                return self._package_data(host["qpos"], host["xpos"], host["xquat"], host["marker_sites"], kp_all)
+        return self._fit("fit_offsets_sharded", kp_local, cfg, True, mesh)
 
     def ik_only_global(self, kp_local_clips, offsets, mesh=None) -> StacData:
         """Batched IK of this rank's block of clips kp_local_clips (C_local,
         Fc, 3K), every block the same shape, with the full payload; the
         outputs are gathered in rank order, so every rank returns the whole
         recording's. Collective over ``mesh`` (the world group by default)."""
-        from stac_mjx_tpu_torch.parallel.distributed import fetch_arrays, pod_mesh
-
-        mesh = pod_mesh() if mesh is None else mesh
-        with profiling.phase("ik_only_global"):
-            with profiling.annotate("stac.upload"):
-                kp = self._to_device(kp_local_clips)
-                offsets = torch.as_tensor(np.array(offsets), device=self.device).to(self.dtype)
-            with profiling.annotate("stac.solve"):
-                out = pipeline.ik_only_program(
-                    self.stac_core_obj, self._static_cfg, self.params, kp, offsets,
-                    self._lb, self._ub, return_full=True,
-                )
-            with profiling.annotate("stac.fetch"):
-                qposes, xposes, xquats, marker_sites, errors = fetch_arrays(out, mesh)
-                kp_all = fetch_arrays(kp, mesh)
-                self._offsets = _numpy(offsets)
-            with profiling.annotate("stac.package"):
-                mean, std = self._error_stats(errors)
-                print(f"ik_only: mean marker error {mean:.6g} m (std {std:.6g})")
-                return self._package_data(qposes, xposes, xquats, marker_sites, kp_all, batched=True)
+        mesh = distributed.pod_mesh() if mesh is None else mesh
+        return self._ik("ik_only_global", kp_local_clips, offsets, True, mesh=mesh)
 
     # ----------------------------------------------------------- package
 

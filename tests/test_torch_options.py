@@ -1,9 +1,9 @@
 """The JAX Stac's last options in the port, on the CPU: stall freezing in the
 batched flat LM against the JAX ``solve_batch`` (float64), the float16 wire
 (uplink arrays bitwise against the JAX Stac's; results against the float32
-wire within the JAX tests' bounds), segmented sequential runs and chunked
-ik against one call (bitwise, or the JAX tests' bounds), and the chunk and
-segment policies against the JAX rules."""
+wire within the JAX tests' bounds), the artifact's keypoints on either wire,
+chunked ik against one batch (bitwise) and the chunk policy against the JAX
+rule, and ``seq_segment_frames`` accepted without effect."""
 
 from unittest import mock
 
@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from conftest import x64_mode
-from _torch_common import THROUGHPUT, bridge, jax_stac, torch_stac
+from _torch_common import THROUGHPUT, TorchStac, bridge, jax_stac, torch_stac
 from stac_mjx_tpu.models import firstparty as jfirstparty
 from stac_mjx_tpu.models.builder import extract_model
 from stac_mjx_tpu.ops.gn_ik import GNIK as JaxGNIK
@@ -25,6 +25,7 @@ from stac_mjx_tpu_torch.stac import wire_encode
 # with the part passes, clips of 8, a 16-frame recording from seed 11.
 CRITTER = dict(THROUGHPUT, skip_part_opt=False, n_frames_per_clip=8)
 SEQ = {"pose_mode": "sequential", "q_solver": "pg", "skip_part_opt": True, "n_frames_per_clip": 8}
+SEQ_MODEL = {"N_ITER_Q": 15, "N_ITERS": 2, "N_SAMPLE_FRAMES": 6}
 
 
 @pytest.fixture(scope="module")
@@ -179,52 +180,53 @@ def test_wire_f16_fit_matches_f32(critter_kp, wire_pair):
 # --------------------------------------------------- segments and chunks
 
 
-def test_segmented_ik_equals_one_call(critter_kp):
-    """Sequential pg ik (test_pipeline.py::test_ik_sequential_segments_match_
-    monolithic's configuration) in segments of 3 frames of each 8-frame
-    clip, the short remainder included, against one call: bitwise, full and
-    lean payload."""
-    mono = torch_stac(dict(SEQ, seq_segment_frames=-1), {"N_ITER_Q": 15})
-    seg = torch_stac(dict(SEQ, seq_segment_frames=3), {"N_ITER_Q": 15})
-    assert (mono._seq_segment_frames(8), seg._seq_segment_frames(8)) == (0, 3)
-    offs = mono._offsets
-    a, b = mono.ik_only(critter_kp, offs), seg.ik_only(critter_kp, offs)
-    for k in ("qpos", "xpos", "xquat", "marker_sites"):
-        np.testing.assert_array_equal(getattr(b, k), getattr(a, k), err_msg=k)
-    np.testing.assert_array_equal(seg.ik_only(critter_kp, offs, return_full=False).qpos, a.qpos)
+def _seq_run(kp, stac: dict):
+    """A sequential pg fit and ik on kp, and the per-frame errors each
+    reported (the fit's per pass, then its final pass's; the ik's)."""
+    st, errors = torch_stac(stac, SEQ_MODEL), []
+    report = TorchStac._error_stats
+    with mock.patch.object(TorchStac, "_error_stats", staticmethod(lambda e: errors.append(e) or report(e))):
+        fit = st.fit_offsets(kp)
+        ik = st.ik_only(kp, st._offsets)
+    return fit, ik, errors
 
 
-def test_segmented_fit_matches_one_call(critter_kp):
-    """test_pipeline.py::test_fit_sequential_segmented_matches_monolithic's
-    configuration (on the recording's first 8 frames, two segments of 3 and
-    one of 2) and bounds: offsets 1e-6, markers 1e-4, qpos 1e-3; the lean
-    payload 1e-7 with an empty xpos."""
-    model = {"N_ITER_Q": 15, "N_ITERS": 2, "N_SAMPLE_FRAMES": 6}
-    mono = torch_stac(dict(SEQ, seq_segment_frames=-1), model)
-    seg = torch_stac(dict(SEQ, seq_segment_frames=3), model)
-    kp = critter_kp[:8]
-    f_m, f_s = mono.fit_offsets(kp), seg.fit_offsets(kp)
-    np.testing.assert_allclose(f_s.offsets, f_m.offsets, atol=1e-6)
-    np.testing.assert_allclose(f_s.marker_sites, f_m.marker_sites, atol=1e-4)
-    np.testing.assert_allclose(f_s.qpos, f_m.qpos, atol=1e-3)
-    f_l = seg.fit_offsets(kp, return_full=False)
-    np.testing.assert_allclose(f_l.offsets, f_s.offsets, atol=1e-7)
-    assert f_l.xpos.size == 0
+@pytest.fixture(scope="module")
+def seq_one_call(critter_kp):
+    """The sequential run on the recording's first 8 frames without the
+    segment key: the one call."""
+    return _seq_run(critter_kp[:8], SEQ)
 
 
-def test_segment_policy_matches_jax():
-    """Explicit values as the JAX rule; auto: one call on the CPU, 10-frame
-    segments on a CUDA device for clips over 25 frames; lockstep never."""
-    js = jax_stac(dict(SEQ, seq_segment_frames=0))
-    st = torch_stac(dict(SEQ, seq_segment_frames=0))
-    for n in (8, 30):
-        assert st._seq_segment_frames(n) == js._seq_segment_frames(n) == 0
-    st.device = torch.device("cuda")  # the policy reads the device type only
-    assert (st._seq_segment_frames(25), st._seq_segment_frames(26)) == (0, 10)
-    for v in (-1, 3, 40):
-        js, st = jax_stac(dict(SEQ, seq_segment_frames=v)), torch_stac(dict(SEQ, seq_segment_frames=v))
-        assert st._seq_segment_frames(30) == js._seq_segment_frames(30)
-    assert torch_stac(dict(CRITTER, seq_segment_frames=3))._seq_segment_frames(30) == 0
+@pytest.mark.parametrize("seg", [-1, 0, 3, 10])
+def test_seq_segment_frames_gives_the_one_call(critter_kp, seq_one_call, seg):
+    """stac.seq_segment_frames is accepted without effect (the JAX
+    package's segments bound a TPU program's size; the port's sequential
+    pass is a host loop over frames): the fit's and the ik's poses,
+    offsets, markers and per-frame errors are the one call's, bitwise."""
+    fit, ik, errors = _seq_run(critter_kp[:8], dict(SEQ, seq_segment_frames=seg))
+    for got, want in zip((fit, ik), seq_one_call):
+        for k in ("qpos", "xpos", "xquat", "marker_sites", "offsets"):
+            np.testing.assert_array_equal(getattr(got, k), getattr(want, k), err_msg=k)
+    assert len(errors) == len(seq_one_call[2]) == SEQ_MODEL["N_ITERS"] + 2
+    for got, want in zip(errors, seq_one_call[2]):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("wire", ["float32", "float16"])
+@pytest.mark.parametrize("entry", ["fit_offsets", "ik_only"])
+def test_artifact_keypoints_are_the_callers(critter_kp, entry, wire):
+    """The artifact's kp_data is the caller's array, bitwise, packaged from
+    the host array that was uploaded: in the compute dtype on the float32
+    wire (float64 here), float32 on the float16 wire, and a copy of its own."""
+    st = torch_stac(dict(CRITTER, skip_part_opt=True, wire_dtype=wire), {"N_ITERS": 1}, dtype=torch.float64)
+    kp = critter_kp.copy()
+    data = st.fit_offsets(kp) if entry == "fit_offsets" else st.ik_only(kp, st._offsets)
+    want = np.float64 if wire == "float32" else np.float32
+    assert data.kp_data.dtype == want
+    np.testing.assert_array_equal(data.kp_data, critter_kp.astype(want))
+    kp[:] = 0.0  # the artifact holds its own copy
+    np.testing.assert_array_equal(data.kp_data, critter_kp.astype(want))
 
 
 def test_chunked_ik_equals_one_batch():

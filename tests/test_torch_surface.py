@@ -25,6 +25,8 @@ ELSEWHERE = {
     ("ops/spd.py", "spd_solve_pallas"): ("ops/spd.py", "spd_solve_cuda"),
     ("ops/spd.py", "spd_solve_pallas_lanes"): ("ops/spd.py", "spd_solve_cuda"),
     ("ops/spd.py", "spd_solve_xla"): ("ops/spd.py", "spd_solve_plain"),
+    # The frame-sharded fit: the one fit program, given a process group.
+    ("pipeline.py", "fit_offsets_sharded"): ("pipeline.py", "fit_offsets_program"),
 }
 # (JAX module, name or "*" for the whole module) -> why the port has none.
 BY_DESIGN = {
@@ -36,6 +38,8 @@ BY_DESIGN = {
     ("ops/spd.py", "LANE"): "the TPU's frames-in-lanes layout: systems stay (F, n, n) on the card",
     ("ops/spd.py", "PANEL"): "the Pallas kernel's column panel: the CUDA kernel keeps a warp's rows in registers",
     ("parallel/mesh.py", "clip_mesh"): "a jax.sharding.Mesh over one process's chips: one process per card here",
+    ("pipeline.py", "ik_sequential_segment"): "a TPU program-size bound, while the port's sequential pass is a host "
+                                              "loop over frames (stac.seq_segment_frames is accepted without effect)",
 }
 NO_JAX = ("jax", "jaxlib", "stac_mjx_tpu")
 
